@@ -1,0 +1,237 @@
+"""Parameter conversion between the JAX package's flax trees and the port's
+torch modules, both ways.
+
+A flax tree is the nested dict a checkpoint's ``state_dict`` holds
+(``{"params": {...}}``, numpy leaves). Module names there are flax's
+automatic ones (``ConformerBlock_0/FeedForwardModule_1/Dense_0``,
+``WeightNorm_{i}/Conv_0/kernel/scale``, ``ResBlock1_{stage·chains+chain}``);
+the tables below pair each leaf with a torch parameter and a layout change:
+
+- Dense kernel (in, out) ↔ Linear weight (out, in);
+- Conv kernel (k, in/groups, out) ↔ Conv1d weight (out, in/groups, k);
+- ConvTranspose kernel (k, in, out) ↔ torch's (in, out, k) with the taps
+  reversed (flax does not flip the kernel; torch's transposed conv does);
+- attention query/key/value kernels (dim, heads, head_dim) and biases
+  (heads, head_dim) ↔ Linear (heads·head_dim, dim) and (heads·head_dim,);
+  the out kernel (heads, head_dim, dim) ↔ Linear (dim, heads·head_dim).
+
+``flax_to_torch`` consumes every leaf and raises on a leaf it did not use or
+a torch parameter it did not fill, except FastSpeech2's ``alignment``
+subtree (used only in training), which it returns as skipped.
+``torch_to_flax`` is the inverse; it lets a machine without JAX write
+checkpoints in the JAX package's layout.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
+from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
+from everyvoice_tpu_torch.models.layers import ConformerStack, VariancePredictor
+
+SKIPPED_SUBTREES = ("alignment",)
+
+
+# Each kind: (flax → torch, torch → flax given the flax shape's head count).
+def _to_torch(arr: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "dense":
+        return arr.T
+    if kind == "conv":
+        return arr.transpose(2, 1, 0)
+    if kind == "conv_transpose":
+        return arr.transpose(1, 2, 0)[..., ::-1]
+    if kind == "mha_in":
+        return arr.reshape(arr.shape[0], -1).T
+    if kind == "mha_in_bias":
+        return arr.reshape(-1)
+    if kind == "mha_out":
+        return arr.reshape(-1, arr.shape[-1]).T
+    return arr
+
+
+def _to_flax(arr: np.ndarray, kind: str, heads: int) -> np.ndarray:
+    if kind == "dense":
+        return arr.T
+    if kind == "conv":
+        return arr.transpose(2, 1, 0)
+    if kind == "conv_transpose":
+        return arr[..., ::-1].transpose(2, 0, 1)
+    if kind == "mha_in":
+        return arr.T.reshape(arr.shape[1], heads, -1)
+    if kind == "mha_in_bias":
+        return arr.reshape(heads, -1)
+    if kind == "mha_out":
+        return arr.T.reshape(heads, -1, arr.shape[0])
+    return arr
+
+
+def _dense(fpath, tkey):
+    return [(fpath + ("kernel",), f"{tkey}.weight", "dense"),
+            (fpath + ("bias",), f"{tkey}.bias", "plain")]
+
+
+def _conv(fpath, tkey):
+    return [(fpath + ("kernel",), f"{tkey}.weight", "conv"),
+            (fpath + ("bias",), f"{tkey}.bias", "plain")]
+
+
+def _norm(fpath, tkey):
+    return [(fpath + ("scale",), f"{tkey}.weight", "plain"),
+            (fpath + ("bias",), f"{tkey}.bias", "plain")]
+
+
+def _embed(fpath, tkey):
+    return [(fpath + ("embedding",), f"{tkey}.weight", "plain")]
+
+
+def _conformer(fpath, tkey, stack: ConformerStack):
+    out = []
+    for i in range(len(stack.blocks)):
+        f, t = fpath + (f"ConformerBlock_{i}",), f"{tkey}.blocks.{i}"
+        for j, ff in ((0, "ff1"), (1, "ff2")):
+            g = f + (f"FeedForwardModule_{j}",)
+            out += _norm(g + ("LayerNorm_0",), f"{t}.{ff}.norm")
+            out += _dense(g + ("Dense_0",), f"{t}.{ff}.fc1")
+            out += _dense(g + ("Dense_1",), f"{t}.{ff}.fc2")
+        out += _norm(f + ("LayerNorm_0",), f"{t}.attn_norm")
+        out += _norm(f + ("LayerNorm_1",), f"{t}.final_norm")
+        a = f + ("MultiHeadDotProductAttention_0",)
+        for name in ("query", "key", "value"):
+            out += [(a + (name, "kernel"), f"{t}.attn.{name}.weight", "mha_in"),
+                    (a + (name, "bias"), f"{t}.attn.{name}.bias", "mha_in_bias")]
+        out += [(a + ("out", "kernel"), f"{t}.attn.out.weight", "mha_out"),
+                (a + ("out", "bias"), f"{t}.attn.out.bias", "plain")]
+        c = f + ("ConformerConvModule_0",)
+        out += _norm(c + ("LayerNorm_0",), f"{t}.conv.norm")
+        out += _dense(c + ("Dense_0",), f"{t}.conv.pointwise_in")
+        out += _conv(c + ("Conv_0",), f"{t}.conv.depthwise")
+        out += _norm(c + ("GroupNorm_0",), f"{t}.conv.group_norm")
+        out += _dense(c + ("Dense_1",), f"{t}.conv.pointwise_out")
+    return out
+
+
+def _predictor(fpath, tkey, vp: VariancePredictor):
+    out = []
+    for i in range(len(vp.convs)):
+        if vp.depthwise:
+            out += _conv(fpath + (f"Conv_{2 * i}",), f"{tkey}.dw_convs.{i}")
+            out += _conv(fpath + (f"Conv_{2 * i + 1}",), f"{tkey}.convs.{i}")
+        else:
+            out += _conv(fpath + (f"Conv_{i}",), f"{tkey}.convs.{i}")
+        out += _norm(fpath + (f"LayerNorm_{i}",), f"{tkey}.norms.{i}")
+    return out + _dense(fpath + ("Dense_0",), f"{tkey}.head")
+
+
+def _fs2_table(model: FastSpeech2) -> list:
+    p = ("params",)
+    out = _embed(p + ("symbol_embed",), "symbol_embed")
+    out += _conformer(p + ("encoder",), "encoder", model.encoder)
+    out += _conformer(p + ("decoder",), "decoder", model.decoder)
+    if model.speaker_embed is not None:
+        out += _embed(p + ("speaker_embed",), "speaker_embed")
+    if model.language_embed is not None:
+        out += _embed(p + ("language_embed",), "language_embed")
+    for name in ("duration", "pitch", "energy"):
+        out += _predictor(p + (f"{name}_predictor",), f"{name}_predictor",
+                          getattr(model, f"{name}_predictor"))
+    out += _embed(p + ("pitch_embed",), "pitch_embed")
+    out += _embed(p + ("energy_embed",), "energy_embed")
+    out += _dense(p + ("mel_head",), "mel_head")
+    if model.postnet is not None:
+        for i in range(len(model.postnet.convs)):
+            out += _conv(p + ("postnet", f"Conv_{i}"), f"postnet.convs.{i}")
+        for i in range(len(model.postnet.norms)):
+            out += _norm(p + ("postnet", f"GroupNorm_{i}"), f"postnet.norms.{i}")
+    return out
+
+
+def _wn(conv_path, scale_path, tkey, kind="conv"):
+    return [(conv_path + ("kernel",), f"{tkey}.weight", kind),
+            (conv_path + ("bias",), f"{tkey}.bias", "plain"),
+            (scale_path, f"{tkey}.scale", "plain")]
+
+
+def _generator_table(model: HiFiGANGenerator) -> list:
+    p = ("params",)
+    n_stages = len(model.ups)
+    out = _wn(p + ("Conv_0",), p + ("WeightNorm_0", "Conv_0/kernel/scale"), "conv_pre")
+    for i in range(n_stages):
+        name = f"ConvTranspose_{i}"
+        out += _wn(p + (name,), p + (f"WeightNorm_{1 + i}", f"{name}/kernel/scale"),
+                   f"ups.{i}", "conv_transpose")
+    for j, chain in enumerate(model.resblocks):
+        block = p + (f"ResBlock1_{j}",)
+        for u in range(len(chain)):
+            out += _wn(block + (f"Conv_{u}",),
+                       block + (f"WeightNorm_{u}", f"Conv_{u}/kernel/scale"),
+                       f"resblocks.{j}.{u}")
+    out += _wn(p + ("Conv_1",), p + (f"WeightNorm_{1 + n_stages}", "Conv_1/kernel/scale"),
+               "conv_post")
+    return out
+
+
+def _table(model) -> list:
+    if isinstance(model, FastSpeech2):
+        return _fs2_table(model)
+    if isinstance(model, HiFiGANGenerator):
+        return _generator_table(model)
+    raise TypeError(f"no flax layout is known for {type(model).__name__}")
+
+
+def _flatten(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(_flatten(value, prefix + (key,)))
+        return out
+    return {prefix: tree}
+
+
+def flax_to_torch(params_tree: dict, model) -> tuple:
+    """(state_dict for ``model``, skipped flax paths) from a flax tree."""
+    leaves = _flatten(params_tree)
+    state, used = {}, set()
+    for fpath, tkey, kind in _table(model):
+        if fpath not in leaves:
+            raise KeyError(f"flax tree has no {'/'.join(fpath)} for {tkey}")
+        arr = np.array(leaves[fpath], dtype=np.float32)
+        state[tkey] = torch.from_numpy(np.ascontiguousarray(_to_torch(arr, kind)))
+        used.add(fpath)
+    skipped = sorted(
+        "/".join(p) for p in leaves
+        if p not in used and isinstance(model, FastSpeech2)
+        and len(p) > 1 and p[1] in SKIPPED_SUBTREES
+    )
+    unused = sorted("/".join(p) for p in leaves if p not in used)
+    unused = [p for p in unused if p not in skipped]
+    if unused:
+        raise ValueError(f"flax leaves with no torch counterpart: {unused}")
+    unfilled = sorted(set(model.state_dict()) - set(state))
+    if unfilled:
+        raise ValueError(f"torch parameters with no flax leaf: {unfilled}")
+    return state, skipped
+
+
+def torch_to_flax(state_dict: dict, model) -> dict:
+    """The flax tree (``{"params": ...}``, float32 numpy leaves) for a
+    ``model``'s state dict."""
+    heads = {}
+    if isinstance(model, FastSpeech2):
+        for stack in ("encoder", "decoder"):
+            for i, block in enumerate(getattr(model, stack).blocks):
+                heads[f"{stack}.blocks.{i}."] = block.attn.heads
+    tree: dict = {}
+    table = _table(model)
+    missing = sorted(set(state_dict) - {t for _, t, _ in table})
+    if missing:
+        raise ValueError(f"torch parameters with no flax leaf: {missing}")
+    for fpath, tkey, kind in table:
+        h = next((n for prefix, n in heads.items() if tkey.startswith(prefix)), 1)
+        arr = state_dict[tkey].detach().float().cpu().numpy()
+        node = tree
+        for key in fpath[:-1]:
+            node = node.setdefault(key, {})
+        node[fpath[-1]] = np.ascontiguousarray(_to_flax(arr, kind, h))
+    return tree

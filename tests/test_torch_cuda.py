@@ -1,0 +1,85 @@
+"""Tests that need a CUDA card: the port's hand-written kernels against their
+plain PyTorch versions, and the wrappers' refusals. Without a card they skip.
+
+This file imports nothing of JAX, so it also runs on a machine that has no
+JAX, without the repository's conftest (which imports it):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: 1e-4 of max|ref| in float32 with TF32 off (sums in another
+order), 2e-2 of max|ref| in bfloat16 (conv operands rounded to bf16 in both
+versions; the order of the float32 sums still differs).
+"""
+
+import pytest
+import torch
+
+from everyvoice_tpu_torch.ops.mrf import mrf_stage, mrf_stage_reference, pack_mrf_weights
+
+pytestmark = pytest.mark.cuda
+
+V1 = ((3, 7, 11), ((1, 3, 5),) * 3)
+CASES = {
+    # (B, T, C), kernels, dilations
+    "v1_c64_odd_length": ((2, 3001, 64), *V1),
+    # 1000 frames of the last V1 stage at a served batch: on an H100's 132
+    # SMs the wrapper plans the largest time tile, 2048 rows
+    "v1_c32_tile_2048": ((4, 256000, 32), *V1),
+    "v1_c256_shorter_than_halo": ((1, 5, 256), *V1),
+    "two_chains_c32": ((1, 1000, 32), (3, 7), ((1, 3), (1, 3))),
+    "one_chain_c96": ((3, 77, 96), (3,), ((1,),)),
+}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(shape, kernels, dils, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    b, t, c = shape
+    x = torch.randn(b, t, c, generator=gen)
+    weights, biases = [], []
+    for k, ds in zip(kernels, dils):
+        for _ in range(2 * len(ds)):
+            weights.append(torch.randn(k * c, c, generator=gen) / (k * c) ** 0.5)
+            biases.append(0.1 * torch.randn(c, generator=gen))
+    w, bias = pack_mrf_weights(weights, biases, dtype)
+    return x.to(dtype).to(device), w.to(device), bias.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mrf_kernel_matches_plain_version(card, case, dtype):
+    shape, kernels, dils = CASES[case]
+    x, w, bias = _inputs(shape, kernels, dils, dtype, card)
+    before = mrf_stage.launches
+    got = mrf_stage(x, w, bias, kernels, dils)
+    ref = mrf_stage_reference(x, w, bias, kernels, dils)
+    torch.cuda.synchronize()
+    assert mrf_stage.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype and got.is_cuda
+    assert torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * ref.float().abs().max().item()
+
+
+def test_mrf_kernel_refuses_what_it_does_not_take(card):
+    """A CUDA tensor goes to the kernel or raises; nothing falls back to the
+    plain version."""
+    kernels, dils = (3,), ((1,),)
+    x, w, bias = _inputs((1, 50, 48), kernels, dils, torch.float32, card)
+    before = mrf_stage.launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mrf_stage(x, w, bias, kernels, dils)
+    x, w, bias = _inputs((1, 50, 64), kernels, dils, torch.float32, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        mrf_stage(x[:, ::2], w, bias, kernels, dils)
+    with pytest.raises(ValueError):
+        mrf_stage(x, w.cpu(), bias.cpu(), kernels, dils)
+    assert mrf_stage.launches == before
