@@ -9,18 +9,30 @@ Phases, any failure of which exits nonzero:
 
 1. print the card's name and power limit (``nvidia-smi``); refuse to run
    without CUDA;
-2. build the MRF kernel (``ops/csrc/mrf.cu``, sm_90a) and print the seconds;
-3. hold the kernel to its plain PyTorch version at the four HiFiGAN V1 stage
-   shapes (batch 2, 1000 mel frames) in float32 (TF32 off; tolerance 1e-4 of
-   max|ref|) and bfloat16 (2e-2 of max|ref|), and time the kernel, the plain
-   version and a cuDNN ``conv1d`` chain computing the same stage;
+2. build the MRF and log-mel kernels (``ops/csrc/mrf.cu`` and
+   ``ops/csrc/mel.cu``, sm_90a), one nvcc each, in parallel, and print the
+   seconds;
+3. hold the MRF kernel to its plain PyTorch version at the four HiFiGAN V1
+   stage shapes (batch 2, 1000 mel frames) in float32 (TF32 off; tolerance
+   1e-4 of max|ref|) and bfloat16 (2e-2 of max|ref|), and time the kernel,
+   the plain version and a cuDNN ``conv1d`` chain computing the same stage;
 4. serve requests of 1, 4 and 16 texts through ``Synthesizer`` from EVTP
    checkpoints of seeded full-width FastSpeech2 + HiFiGAN V1 weights, check
    the wavs, the kernel's launch count and the real-time factor; then serve
    them again holding every MRF stage they run, at the batch sizes (and so
    time tiles) the requests give it, to the plain version in bfloat16; and
    hold the card's float32 synthesis of one text to the CPU's;
-5. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+5. hold the log-mel kernel to its plain version at the two batch shapes
+   the preprocessor serves, (16, 131072) and (16, 262144), in float32 (TF32
+   off, tolerance 1e-4 absolute), and time the kernel, the plain version
+   and a cuFFT ``torch.stft`` chain computing the same log-mel;
+6. preprocess a seeded 512-utterance corpus (3–10 s each, about 55 minutes
+   of audio) through ``Preprocessor.preprocess`` on the card: audio, text,
+   spec, attn, energy and pitch; check every artifact, the stats, the split
+   and that the log-mel kernel ran once per feature batch; then hold the
+   log-mel kernel to its plain version on every batch the feature step
+   serves, and hold the card's features of one served batch to the CPU's;
+7. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -28,9 +40,13 @@ It imports nothing of JAX or of ``everyvoice_tpu``.
 from __future__ import annotations
 
 import json
+import math
+import os
 import sys
 import tempfile
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -41,6 +57,10 @@ V1_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256))  # (C, samples per frame
 KERNEL_SIZES = (3, 7, 11)
 DILATIONS = ((1, 3, 5),) * 3
 MEL_FRAMES = 1000
+SR = 22050
+MEL_SHAPES = ((16, 131072), (16, 262144))  # the preprocessor's served buckets
+CORPUS_UTTERANCES = 512
+FEATURE_STEPS = ("audio", "text", "spec", "attn", "energy", "pitch")
 
 
 def fail(message: str) -> None:
@@ -243,6 +263,253 @@ def reference_check(fs2_path: Path, voc_path: Path) -> dict:
     return {"mel_diff": mel_diff, "wav_diff": wav_diff}
 
 
+def library_log_mel(x, window, basis, n_fft: int = 1024, hop: int = 256):
+    """The same log-mel as a chain of PyTorch library calls: cuFFT's
+    ``torch.stft`` (centre, reflect pad, periodic Hann), magnitude, mel
+    matmul, log-clamp, TF32 off. The library yardstick for the kernel's
+    time, used nowhere in the port."""
+    import torch
+
+    spec = torch.stft(x, n_fft, hop, window.shape[0], window, center=True,
+                      pad_mode="reflect", return_complex=True)
+    mag = torch.sqrt(spec.real * spec.real + spec.imag * spec.imag + 1e-9)
+    return torch.log(torch.clamp(basis @ mag, min=1e-5))
+
+
+def check_mel_kernel(gen) -> list:
+    """Log-mel kernel vs plain version at the preprocessor's two served
+    batch shapes; returns one row per shape."""
+    import torch
+
+    from everyvoice_tpu_torch.dsp.spectral import hann_window, librosa_mel_basis
+    from everyvoice_tpu_torch.ops.mel import log_mel, log_mel_reference
+
+    n_fft, hop, n_mels = 1024, 256, 80
+    n_bins = n_fft // 2 + 1
+    basis = torch.from_numpy(librosa_mel_basis(SR, n_fft, n_mels, 0.0, 8000.0)).cuda()
+    window = torch.from_numpy(hann_window(n_fft)).cuda()
+    rows = []
+    for b, s in MEL_SHAPES:
+        x = (0.3 * torch.randn(b, s, generator=gen)).cuda()
+        got = log_mel(x)
+        ref = log_mel_reference(x)
+        lib = library_log_mel(x, window, basis)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not (err <= 1e-4 and torch.isfinite(got).all()):
+            fail(f"log_mel disagrees with its plain version at ({b}, {s}): max diff {err} > 1e-4")
+        frames = s // hop + 1
+        # The function's least work: a real FFT of n_fft points (about
+        # 2.5·n_fft·log2(n_fft) flops), the magnitude (4 a bin), the mel
+        # product over the mel basis's nonzeros, the log; and its bytes: the
+        # audio, window and mel weights read once, the log-mel written once.
+        flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + 4 * n_bins
+                              + 2 * int((basis != 0).sum()) + n_mels)
+        n_bytes = 4 * (x.numel() + n_fft + n_bins * n_mels + b * n_mels * frames)
+        # The ported algorithm's work, for the redesign: the DFT as two dense
+        # products against the cos and -sin bases, and a dense mel product.
+        dft_flops = b * frames * (4 * n_fft * n_bins + 2 * n_bins * n_mels)
+        row = {
+            "B": b, "S": s, "frames": frames, "max_abs_err": err, "tol": 1e-4,
+            "library_max_abs_err": (lib - ref).abs().max().item(),
+            "kernel_ms": cuda_ms(lambda: log_mel(x), 20),
+            "plain_ms": cuda_ms(lambda: log_mel_reference(x), 10),
+            "library_ms": cuda_ms(lambda: library_log_mel(x, window, basis), 20),
+            "bound_ms": 1e3 * max(flops / H100_FP32_FLOPS, n_bytes / H100_BYTES_PER_S),
+            "bound_by": "operations" if flops / H100_FP32_FLOPS >= n_bytes / H100_BYTES_PER_S
+            else "bytes",
+            "gflop": flops / 1e9, "bytes": n_bytes,
+            "dft_matmul_gflop": dft_flops / 1e9,
+            "dft_matmul_bound_ms": 1e3 * dft_flops / H100_FP32_FLOPS,
+        }
+        row["gflops"] = flops / (row["kernel_ms"] * 1e-3) / 1e9
+        row["dft_matmul_gflops"] = dft_flops / (row["kernel_ms"] * 1e-3) / 1e9
+        print("mel " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def corpus_config(root: Path, filelist: Path, wavs: Path) -> dict:
+    return {
+        "preprocessing": {
+            "dataset": "seeded-corpus", "save_dir": str(root / "preprocessed"),
+            "source_data": [{"label": "seeded", "permissions_obtained": True,
+                             "data_dir": str(wavs), "filelist": str(filelist)}],
+        },
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}},
+    }
+
+
+def preprocess_corpus(root: Path, card: str) -> dict:
+    """The main path: ``Preprocessor.preprocess`` over a seeded corpus on the
+    card, every artifact checked."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.dsp.audio_io import read_wav
+    from everyvoice_tpu_torch.onchip import write_corpus
+    from everyvoice_tpu_torch.ops.mel import log_mel
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    t0 = time.perf_counter()
+    filelist, wavs, audio_s = write_corpus(root / "corpus", CORPUS_UTTERANCES, seed=0)
+    print(f"corpus: {CORPUS_UTTERANCES} utterances, {audio_s:.1f} s of audio, "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = corpus_config(root, filelist, wavs)
+    pre = Preprocessor(cfg)  # the card by default
+    if pre.device.type != "cuda":
+        fail(f"Preprocessor resolved to {pre.device}")
+    cpus = min(8, os.cpu_count() or 1)
+
+    log_mel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre.preprocess(to_process=FEATURE_STEPS, cpus=cpus)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = log_mel.launches
+
+    save = pre.save_dir
+    hop = pre.audio_config["fft_hop_size"]
+    summary = json.loads((save / "summary.txt").read_text())
+    if summary["processed_files"] != CORPUS_UTTERANCES:
+        fail(f"the audio step kept {summary['processed_files']} of {CORPUS_UTTERANCES} files")
+    rows = generic_psv_filelist_reader(save / "filelist.psv")
+    for kind in ("spec", "energy", "pitch", "attn"):
+        n = len(list((save / kind).glob("*.npy")))
+        if n != CORPUS_UTTERANCES:
+            fail(f"{n} {kind} artifacts for {CORPUS_UTTERANCES} utterances")
+    for row in rows:
+        item = pre.get_speaker_and_language(row)
+        frames = read_wav(pre.create_path(item, "audio", f"audio-{SR}.wav"))[0].shape[1] // hop
+        spec = np.load(pre.create_path(item, "spec", pre._spec_filename()))
+        energy = np.load(pre.create_path(item, "energy", "energy.npy"))
+        pitch = np.load(pre.create_path(item, "pitch", "pitch.npy"))
+        attn = np.load(pre.create_path(item, "attn", "characters-attn-prior.npy"))
+        n_tokens = len([t for t in pre.text_processor.split_tokens(row["character_tokens"]) if t])
+        if (spec.shape != (80, frames) or energy.shape != (frames,) or pitch.shape != (frames,)
+                or attn.shape != (frames, n_tokens)):
+            fail(f"{row['basename']}: shapes {spec.shape} {energy.shape} {pitch.shape} "
+                 f"{attn.shape} for {frames} frames and {n_tokens} tokens")
+        if not all(np.isfinite(a).all() for a in (spec, energy, pitch, attn)):
+            fail(f"{row['basename']}: an artifact is not finite")
+    stats = json.loads((save / "stats.json").read_text())
+    if {k: stats[k]["sample_size"] for k in ("energy", "pitch")} != {
+            "energy": CORPUS_UTTERANCES, "pitch": CORPUS_UTTERANCES}:
+        fail(f"stats.json: {stats}")
+    n_train = len(generic_psv_filelist_reader(save / "training_filelist.psv"))
+    n_val = len(generic_psv_filelist_reader(save / "validation_filelist.psv"))
+    if (n_train, n_val) != (int(CORPUS_UTTERANCES * 0.9), CORPUS_UTTERANCES - int(CORPUS_UTTERANCES * 0.9)):
+        fail(f"split of {n_train} + {n_val}")
+    batches = len(pre.last_batch_shapes)
+    if launches == 0 or launches != batches:
+        fail(f"log_mel launched {launches} times for {batches} feature batches")
+    row = {
+        "utterances": CORPUS_UTTERANCES, "audio_s": audio_s, "wall_s": wall,
+        "audio_s_per_s": audio_s / wall, "step_seconds": pre.last_step_seconds,
+        "cpus": cpus, "batches": batches, "launches": launches,
+        "bucket_shapes": sorted([list(k), v] for k, v in Counter(pre.last_batch_shapes).items()),
+        "transfer_bytes": pre.last_transfer_bytes, "card": card,
+    }
+    print("preprocess " + json.dumps(row), flush=True)
+    return {"pre": pre, "cfg": cfg, "launches": launches, "row": row}
+
+
+def check_served_features(pre) -> tuple:
+    """Every batch the feature step serves over the same corpus, as the
+    program sees it (int16 PCM / 32768 on the card), through the log-mel
+    kernel and its plain version (1e-4 absolute); one row per batch shape.
+    Returns (rows, the last batch of each shape)."""
+    import torch
+
+    from everyvoice_tpu_torch.ops.mel import log_mel, log_mel_reference
+
+    a = pre.audio_config
+    args = (a["input_sampling_rate"], a["n_fft"], a["fft_window_size"], a["fft_hop_size"],
+            a["n_mels"], float(a["f_min"]), float(a["f_max"]))
+    filelist = pre.load_filelist(pre.save_dir / "filelist.psv")
+    seen, last = {}, {}
+    pre.overwrite = True  # every utterance, though its artifacts exist
+    try:
+        for _, batch in pre.feature_batches(filelist, ("spec", "energy", "pitch")):
+            x = torch.from_numpy(batch).to(pre.device)
+            if x.dtype == torch.int16:
+                x = x.to(torch.float32) / 32768.0
+            got = log_mel(x, *args)
+            err = (got - log_mel_reference(x, *args)).abs().max().item()
+            if not (err <= 1e-4 and torch.isfinite(got).all()):
+                fail(f"log_mel disagrees with its plain version on a served batch "
+                     f"{batch.shape}: max diff {err} > 1e-4")
+            row = seen.setdefault(batch.shape, {
+                "B": batch.shape[0], "S": batch.shape[1], "calls": 0, "max_abs_err": 0.0,
+                "tol": 1e-4})
+            row["calls"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            last[batch.shape] = batch
+    finally:
+        pre.overwrite = False
+    rows = [seen[k] for k in sorted(seen)]
+    for row in rows:
+        print("served mel " + json.dumps(row), flush=True)
+    if sum(r["calls"] for r in rows) != len(pre.last_batch_shapes):
+        fail("the feature step served another number of batches the second time")
+    return rows, last
+
+
+def time_feature_program(pre, batches: dict, mel_rows: list) -> list:
+    """Device time of the whole feature program (int16 → float, log-mel,
+    energy, F0) on one served batch of each shape, beside the log-mel
+    kernel's share of it."""
+    import torch
+
+    program = pre._feature_program()
+    kernel_ms = {(r["B"], r["S"]): r["kernel_ms"] for r in mel_rows}
+    rows = []
+    for shape, batch in sorted(batches.items()):
+        x = torch.from_numpy(batch).cuda()
+        row = {"shape": list(shape), "program_ms": cuda_ms(lambda: program(x), 10),
+               "log_mel_ms": kernel_ms[shape]}
+        row["log_mel_share"] = row["log_mel_ms"] / row["program_ms"]
+        print("feature program " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def features_card_vs_cpu(cfg: dict, batch) -> dict:
+    """One served batch's features on the card and on the CPU: spec within
+    1e-3, energy within 1e-3 of max|ref|, and F0 within 1e-3 relative on at
+    least 99% of frames (a frame whose CMNDF or voicing decision sits on a
+    threshold may flip under another float32 summation order)."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+
+    x = torch.from_numpy(batch)
+    card = [t.cpu().numpy() for t in Preprocessor(cfg)._feature_program()(x.cuda())]
+    cpu = [t.numpy() for t in Preprocessor(cfg, device="cpu")._feature_program()(x)]
+    spec_diff = float(np.abs(card[0] - cpu[0]).max())
+    energy_diff = float(np.abs(card[1] - cpu[1]).max() / np.abs(cpu[1]).max())
+    rel = np.abs(card[2] - cpu[2]) / np.maximum(np.abs(cpu[2]), 1e-6)
+    flipped = int((rel > 1e-3).sum())
+    row = {"shape": list(batch.shape), "spec_max_abs_diff": spec_diff,
+           "energy_max_rel_diff": energy_diff, "f0_frames": int(rel.size),
+           "f0_frames_over_1e-3": flipped, "f0_max_rel_diff": float(rel.max())}
+    print("features card vs cpu " + json.dumps(row), flush=True)
+    if spec_diff > 1e-3 or energy_diff > 1e-3 or flipped > 0.01 * rel.size:
+        fail("the card's features disagree with the CPU's")
+    return row
+
+
+def timed_build(name: str) -> tuple:
+    from everyvoice_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build(name)
+    return time.perf_counter() - t0, lib
+
+
 def main() -> int:
     if not (ROOT / "everyvoice_tpu_torch" / "ops" / "csrc" / "mrf.cu").exists():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -255,7 +522,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from everyvoice_tpu_torch.models.fs2.synthesize import Synthesizer
     from everyvoice_tpu_torch.onchip import card_line, write_seeded_checkpoints
-    from everyvoice_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -264,9 +530,11 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
-    lib = _build.build("mrf")
-    print(f"build: mrf.cu in {time.perf_counter() - t0:.2f} s -> {lib.name}", flush=True)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = {name: pool.submit(timed_build, name) for name in ("mrf", "mel")}
+        for name, future in builds.items():
+            seconds, lib = future.result()
+            print(f"build: {name}.cu in {seconds:.2f} s -> {lib.name}", flush=True)
 
     gen = torch.Generator().manual_seed(0)
     stages = check_kernel(gen)
@@ -279,6 +547,13 @@ def main() -> int:
         served_stages = check_served_stages(synth)
         del synth
         reference_check(fs2_path, voc_path)
+
+    mel_rows = check_mel_kernel(torch.Generator().manual_seed(1))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        prep = preprocess_corpus(Path(tmp), card)
+        served_mel, batches = check_served_features(prep["pre"])
+        time_feature_program(prep["pre"], batches, mel_rows)
+        features_card_vs_cpu(prep["cfg"], batches[max(batches)])
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -294,6 +569,19 @@ def main() -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in bf16) else "bytes",
         "library_ms": sum(r["library_ms"] for r in bf16),
         "shapes": "sum of the four V1 stages, B=2, 1000 mel frames, bfloat16",
+    }, {
+        "name": "log_mel",
+        "route": "cuda",
+        "source": "everyvoice_tpu_torch/ops/csrc/mel.cu",
+        "replaces": "everyvoice_tpu/ops/mel_pallas.py::fused_log_mel",
+        "launches": prep["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel),
+        "ms": sum(r["kernel_ms"] for r in mel_rows),
+        "plain_ms": sum(r["plain_ms"] for r in mel_rows),
+        "bound_ms": sum(r["bound_ms"] for r in mel_rows),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in mel_rows) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in mel_rows),
+        "shapes": "sum of the two served batches (16, 131072) and (16, 262144), float32",
     }]}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

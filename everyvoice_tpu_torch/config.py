@@ -4,8 +4,8 @@ The JAX package validates these dicts with pydantic models
 (``models/fs2/config.py``, ``models/hifigan/config.py``,
 ``config/preprocessing_config.py``, ``config/text_config.py``); the port has
 no pydantic, so it fills in the same defaults here and reads plain dicts.
-The defaults cover the model section of each model's config and the audio
-and text sections they share; serving reads only some of them.
+The defaults cover the model section of each model's config, the audio and
+text sections they share, and the preprocessing section with its datasets.
 """
 
 from __future__ import annotations
@@ -56,6 +56,20 @@ AUDIO = {
     "target_bit_depth": 16, "n_fft": 1024, "fft_window_size": 1024,
     "fft_hop_size": 256, "f_min": 0, "f_max": 8000, "n_mels": 80,
     "spec_type": "mel-librosa", "vocoder_segment_size": 8192,
+}
+PREPROCESSING = {
+    "dataset": "YourDataSet",
+    "train_split": 0.9,
+    "dataset_split_seed": 1234,
+    "save_dir": "preprocessed/YourDataSet",
+}
+DATASET = {
+    "label": "YourDataSet",
+    "permissions_obtained": False,
+    "data_dir": "/please/create/a/path/to/your/dataset/data",
+    "filelist": "/please/create/a/path/to/your/dataset/filelist",
+    "filelist_loader": "everyvoice_tpu.utils.generic_psv_filelist_reader",
+    "sox_effects": [["channels", "1"]],
 }
 PUNCTUATION = {
     "exclamations": ["!", "¡"],
@@ -121,3 +135,25 @@ def hifigan_config(config: dict) -> dict:
         "model": merge_defaults(HIFIGAN_MODEL, config.get("model")),
         "preprocessing": _preprocessing(config),
     }
+
+
+def preprocessing_config(config: dict) -> dict:
+    """A config for preprocessing, with the defaults of its preprocessing
+    section, of each dataset in ``source_data`` and of its text section
+    filled in. Raises, as the JAX package's validator does, for a dataset
+    without ``permissions_obtained``."""
+    pre = merge_defaults(PREPROCESSING, config.get("preprocessing"))
+    pre["audio"] = merge_defaults(AUDIO, pre.get("audio"))
+    datasets = []
+    for given in pre.get("source_data") or []:
+        dataset = merge_defaults(DATASET, given)
+        if not dataset["filelist_loader"]:
+            dataset["filelist_loader"] = DATASET["filelist_loader"]
+        if not dataset["permissions_obtained"]:
+            raise ValueError(
+                "You must check off that you have permission to use your data "
+                "(set permissions_obtained: true)."
+            )
+        datasets.append(dataset)
+    pre["source_data"] = datasets
+    return {**config, "preprocessing": pre, "text": merge_defaults(TEXT, config.get("text"))}

@@ -1,7 +1,7 @@
 """What the on-card check (``chip_smoke.py``) and the serving profile
 (``python -m everyvoice_tpu_torch.profile_serving``) share: the card's name
-and power limit, the requests they send and seeded full-width checkpoints to
-serve them from.
+and power limit, the requests they send, seeded full-width checkpoints to
+serve them from, and a seeded wav corpus to preprocess.
 
 The checkpoints hold random FastSpeech2 and HiFiGAN V1 weights at the
 default widths, drawn from a ``torch.Generator``, with the duration head's
@@ -22,6 +22,7 @@ import torch
 
 from everyvoice_tpu_torch.config import fs2_config, hifigan_config
 from everyvoice_tpu_torch.convert import torch_to_flax
+from everyvoice_tpu_torch.dsp.audio_io import write_wav
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
 from everyvoice_tpu_torch.text import TextProcessor
@@ -94,3 +95,35 @@ def write_seeded_checkpoints(out_dir: Path, gen: torch.Generator, device) -> tup
     voc_path = save_checkpoint(out_dir / "hifigan.ckpt", "HiFiGANGenerator", voc_raw,
                                torch_to_flax(voc.state_dict(), voc))
     return fs2_path, voc_path
+
+
+CORPUS_WORDS = (
+    "the quick brown fox jumps over a lazy dog near my big red house and sings"
+).split()
+
+
+def write_corpus(root: Path, n_utts: int, seed: int = 0, sr: int = 22050) -> tuple:
+    """(filelist path, wav directory, audio seconds) of a seeded corpus of
+    ``n_utts`` 16-bit utterances of 3–10 s: a noise-modulated tone gliding
+    around 110 Hz, loud enough to pass the −36 LUFS gate, with eight words of
+    text each. The filelist's columns are basename|characters|speaker|language,
+    the ones the audio step keeps."""
+    rng = np.random.default_rng(seed)
+    wav_dir = root / "wavs"
+    wav_dir.mkdir(parents=True, exist_ok=True)
+    rows = ["basename|characters|speaker|language"]
+    total_seconds = 0.0
+    for i in range(n_utts):
+        seconds = float(rng.uniform(3.0, 10.0))
+        t = np.arange(int(seconds * sr)) / sr
+        total_seconds += t.size / sr
+        f0 = 110.0 * (1 + 0.3 * np.sin(2 * np.pi * 0.7 * t + i))
+        tone = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / sr)
+        noise = 0.05 * rng.standard_normal(t.size)
+        envelope = 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 1.3 * t))
+        write_wav(wav_dir / f"utt{i:05d}.wav", ((tone + noise) * envelope).astype(np.float32), sr)
+        text = " ".join(CORPUS_WORDS[j] for j in rng.integers(0, len(CORPUS_WORDS), 8))
+        rows.append(f"utt{i:05d}|{text}|default|default")
+    filelist = root / "filelist.psv"
+    filelist.write_text("\n".join(rows) + "\n", encoding="utf8")
+    return filelist, wav_dir, total_seconds

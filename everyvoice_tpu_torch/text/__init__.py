@@ -1,6 +1,8 @@
 """Character-level text front end: normalization, tokenization, encoding."""
 
 from everyvoice_tpu_torch.text.text_processor import (  # noqa: F401
+    CHARACTER_JOINER,
+    JOINER_SUBSTITUTION,
     PAD_SYMBOL,
     OutOfVocabularySymbolError,
     TextProcessor,

@@ -22,6 +22,10 @@ from everyvoice_tpu_torch.utils import resolve_cleaner
 logger = logging.getLogger(__name__)
 
 PAD_SYMBOL = "\x80"
+# Token strings in filelists are joined with "/"; a "/" inside a token is
+# written as "<SLASH>".
+CHARACTER_JOINER = "/"
+JOINER_SUBSTITUTION = "<SLASH>"
 DEFAULT_PUNCTUATION_HASH = {
     "exclamations": "<EXCL>",
     "ellipses": "<EPS>",
@@ -148,9 +152,15 @@ class TextProcessor:
             return self.config["language_to_replace"][lang_id]
         return self.to_replace
 
-    def normalize_text(self, text: str, lang_id: Optional[str] = None) -> str:
+    def normalize_text(
+        self, text: str, lang_id: Optional[str] = None, dataset_label: Optional[str] = None
+    ) -> str:
+        """Replace rules, then cleaners, of the dataset, else the language,
+        else the global config."""
         return normalize_text_helper(
-            text, self.get_to_replace(lang_id=lang_id), self.get_cleaners(lang_id=lang_id)
+            text,
+            self.get_to_replace(lang_id=lang_id, dataset_label=dataset_label),
+            self.get_cleaners(lang_id=lang_id, dataset_label=dataset_label),
         )
 
     def apply_tokenization(self, normalized_text: str, quiet: bool = False) -> list:
@@ -193,3 +203,16 @@ class TextProcessor:
 
     def token_sequence_to_text_sequence(self, sequence: list) -> list:
         return [self._id_to_symbol[i] for i in sequence]
+
+    @staticmethod
+    def split_tokens(
+        joined_sequence: str,
+        join_character: str = CHARACTER_JOINER,
+        joiner_substitution: str = JOINER_SUBSTITUTION,
+    ) -> list:
+        """The tokens of a joined token string (a filelist's
+        ``character_tokens`` or ``phone_tokens``)."""
+        return [
+            piece.replace(joiner_substitution, join_character)
+            for piece in joined_sequence.split(join_character)
+        ]

@@ -6,14 +6,17 @@ JAX, without the repository's conftest (which imports it):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: 1e-4 of max|ref| in float32 with TF32 off (sums in another
-order), 2e-2 of max|ref| in bfloat16 (conv operands rounded to bf16 in both
-versions; the order of the float32 sums still differs).
+Tolerances: for the MRF stage, 1e-4 of max|ref| in float32 with TF32 off
+(sums in another order), 2e-2 of max|ref| in bfloat16 (conv operands
+rounded to bf16 in both versions; the order of the float32 sums still
+differs); for the log-mel, 1e-4 absolute, the JAX package's own
+kernel-vs-XLA tolerance.
 """
 
 import pytest
 import torch
 
+from everyvoice_tpu_torch.ops.mel import log_mel, log_mel_reference
 from everyvoice_tpu_torch.ops.mrf import mrf_stage, mrf_stage_reference, pack_mrf_weights
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +86,42 @@ def test_mrf_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         mrf_stage(x, w.cpu(), bias.cpu(), kernels, dils)
     assert mrf_stage.launches == before
+
+
+MEL_CASES = {
+    # (B, S), n_fft, win, hop
+    "served_bucket_16x131072": ((16, 131072), 1024, 1024, 256),
+    "odd_length_3x8193": ((3, 8193), 1024, 1024, 256),
+    "win_800": ((2, 25677), 1024, 800, 256),
+    # n_fft not a multiple of the kernel's 32-sample chunk
+    "n_fft_1000_hop_250": ((2, 25031), 1000, 1000, 250),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MEL_CASES))
+def test_log_mel_kernel_matches_plain_version(card, case):
+    (b, s), n_fft, win, hop = MEL_CASES[case]
+    gen = torch.Generator().manual_seed(0)
+    x = (0.3 * torch.randn(b, s, generator=gen)).to(card)
+    before = log_mel.launches
+    got = log_mel(x, 22050, n_fft, win, hop)
+    ref = log_mel_reference(x, 22050, n_fft, win, hop)
+    torch.cuda.synchronize()
+    assert log_mel.launches == before + 1
+    assert got.shape == (b, 80, s // hop + 1) and got.is_cuda
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
+def test_log_mel_kernel_refuses_what_it_does_not_take(card):
+    """A CUDA tensor goes to the kernel or raises; nothing falls back to the
+    plain version."""
+    x = torch.zeros(2, 8192, device=card)
+    before = log_mel.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        log_mel(x.t().contiguous().t())
+    with pytest.raises(ValueError, match="mels"):
+        log_mel(x, n_mels=256)
+    with pytest.raises(TypeError):
+        log_mel(x.half())
+    assert log_mel.launches == before

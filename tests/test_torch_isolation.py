@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of ``everyvoice_tpu_torch``
-and running a small CPU synthesis loads nothing of JAX, flax, pydantic,
-regex, msgpack or ``everyvoice_tpu``. This file's process has imported JAX
+"""The port stands alone: importing every module of ``everyvoice_tpu_torch``,
+running a small CPU synthesis and a small CPU preprocess loads nothing of
+JAX, flax, pydantic, regex, msgpack or ``everyvoice_tpu``. This file's process has imported JAX
 already (tests/conftest.py), so the check runs in a fresh interpreter."""
 
 import json
@@ -48,8 +48,17 @@ with tempfile.TemporaryDirectory() as tmp:
     synth = Synthesizer(f, v, device="cpu")
     results = synth.synthesize(["Hello world.", "A second, slightly longer text."])
     written = synth.write_outputs(results, tmp / "out", ("wav", "spec"))
+
+    from everyvoice_tpu_torch.onchip import write_corpus
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+    filelist, wavs, _ = write_corpus(tmp / "corpus", 2)
+    pre = Preprocessor({"preprocessing": {"save_dir": str(tmp / "pre"), "source_data": [
+        {"permissions_obtained": True, "data_dir": str(wavs), "filelist": str(filelist)}]},
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}, device="cpu")
+    pre.preprocess(to_process=("audio", "text", "spec", "attn", "energy", "pitch"), cpus=2)
+    specs = len(list((tmp / "pre" / "spec").glob("*.npy")))
 roots = sorted({name.split(".")[0] for name in sys.modules})
-print(json.dumps({"roots": roots, "written": len(written),
+print(json.dumps({"roots": roots, "written": len(written), "specs": specs,
                   "samples": [len(r["wav"]) for r in results]}))
 """
 
@@ -63,6 +72,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["written"] == 4
+    assert report["specs"] == 2
     assert all(n > 0 for n in report["samples"])
     loaded = set(report["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
@@ -77,10 +87,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         load_fs2_from_checkpoint,
         load_vocoder_from_checkpoint,
     )
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
 
     missing = tmp_path / "never-read.ckpt"  # the device is resolved first
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Synthesizer(missing, missing)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Preprocessor({"preprocessing": {"save_dir": str(tmp_path / "never-made")}})
+    assert not (tmp_path / "never-made").exists()
     for load in (load_fs2_from_checkpoint, load_vocoder_from_checkpoint):
         with pytest.raises(RuntimeError, match="CUDA"):
             load(missing)
