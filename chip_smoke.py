@@ -12,25 +12,27 @@ Phases, any failure of which exits nonzero:
 2. build the MRF and log-mel kernels (``ops/csrc/mrf.cu`` and
    ``ops/csrc/mel.cu``, sm_90a), one nvcc each, in parallel, and print the
    seconds;
-3. hold the MRF kernel to its plain PyTorch version at the four HiFiGAN V1
-   stage shapes (batch 2, 1000 mel frames) in float32 (TF32 off; tolerance
-   1e-4 of max|ref|) and bfloat16 (2e-2 of max|ref|), and time the kernel,
-   the plain version and a cuDNN ``conv1d`` chain computing the same stage;
+3. hold the MRF kernels to their plain PyTorch version at the four HiFiGAN
+   V1 stage shapes (batch 2, 1000 mel frames) in float32 (the CUDA-core
+   kernel, TF32 off; tolerance 1e-4 of max|ref|) and bfloat16 (the
+   tensor-core launch sequence; 2e-2 of max|ref|), and time the stage, the
+   plain version and a cuDNN ``conv1d`` chain computing the same stage;
 4. serve requests of 1, 4 and 16 texts through ``Synthesizer`` from EVTP
    checkpoints of seeded full-width FastSpeech2 + HiFiGAN V1 weights, check
-   the wavs, the kernel's launch count and the real-time factor; then serve
-   them again holding every MRF stage they run, at the batch sizes (and so
-   time tiles) the requests give it, to the plain version in bfloat16; and
+   the wavs, the stage's and its kernels' launch counts and the real-time
+   factor; then serve them again holding every MRF stage they run, at the
+   batch sizes the requests give it, to the plain version in bfloat16; and
    hold the card's float32 synthesis of one text to the CPU's;
-5. hold the log-mel kernel to its plain version at the two batch shapes
+5. hold the log-mel FFT kernel to its plain version at the two batch shapes
    the preprocessor serves, (16, 131072) and (16, 262144), in float32 (TF32
    off, tolerance 1e-4 absolute), and time the kernel, the plain version
-   and a cuFFT ``torch.stft`` chain computing the same log-mel;
+   and a cuFFT ``torch.stft`` chain computing the same log-mel; hold the
+   DFT kernel (n_fft 1000, not a power of two) to its plain version too;
 6. preprocess a seeded 512-utterance corpus (3–10 s each, about 55 minutes
    of audio) through ``Preprocessor.preprocess`` on the card: audio, text,
    spec, attn, energy and pitch; check every artifact, the stats, the split
-   and that the log-mel kernel ran once per feature batch; then hold the
-   log-mel kernel to its plain version on every batch the feature step
+   and that the log-mel FFT kernel ran once per feature batch; then hold
+   the log-mel kernel to its plain version on every batch the feature step
    serves, and hold the card's features of one served batch to the CPU's;
 7. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
@@ -54,6 +56,8 @@ H100_BF16_FLOPS = 989e12    # dense tensor-core peak
 H100_FP32_FLOPS = 67e12     # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12  # HBM3
 V1_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256))  # (C, samples per frame)
+DESIGN = {"torch.float32": "cuda-core fp32 FMA, one launch",
+          "torch.bfloat16": "tensor-core mma.sync implicit GEMM, one launch per conv position"}
 KERNEL_SIZES = (3, 7, 11)
 DILATIONS = ((1, 3, 5),) * 3
 MEL_FRAMES = 1000
@@ -127,8 +131,10 @@ def check_kernel(gen) -> list:
             w, b = pack_mrf_weights(weights, biases, dt)
             w, b = w.cuda(), b.cuda()
             ref = mrf_stage_reference(xd, w, b, KERNEL_SIZES, DILATIONS)
+            issued = mrf_stage.kernel_launches
             got = mrf_stage(xd, w, b, KERNEL_SIZES, DILATIONS)
             torch.cuda.synchronize()
+            issued = mrf_stage.kernel_launches - issued
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             tol = rel_tol * scale
@@ -139,6 +145,7 @@ def check_kernel(gen) -> list:
             n_bytes = (2 * xd.numel() + w.numel() + b.numel()) * xd.element_size()
             row = {
                 "C": c, "T": t, "B": batch, "dtype": str(dt).replace("torch.", ""),
+                "design": DESIGN[str(dt)], "kernel_launches": issued,
                 "max_abs_err": err, "tol": tol,
                 "kernel_ms": cuda_ms(lambda: mrf_stage(xd, w, b, KERNEL_SIZES, DILATIONS), 5),
                 "plain_ms": cuda_ms(lambda: mrf_stage_reference(xd, w, b, KERNEL_SIZES, DILATIONS), 3),
@@ -171,6 +178,7 @@ def serve(synth, out_dir: Path, card: str) -> dict:
 
     forwards.clear()
     mrf_stage.launches = 0
+    mrf_stage.kernel_launches = 0
     timings = []
     for i, texts in enumerate(REQUESTS):
         torch.cuda.synchronize()
@@ -192,28 +200,36 @@ def serve(synth, out_dir: Path, card: str) -> dict:
                "wall_s": wall, "audio_s": audio_s, "rtf": audio_s / wall, "card": card}
         print("request " + json.dumps(row), flush=True)
         timings.append(row)
-    launches = mrf_stage.launches
+    launches, issued = mrf_stage.launches, mrf_stage.kernel_launches
     n_stages = len(synth.vocoder.ups)
     if launches == 0 or launches != n_stages * len(forwards):
         fail(f"mrf_stage launched {launches} times for {len(forwards)} generator forwards")
-    return {"launches": launches, "forwards": len(forwards), "requests": timings}
+    # bf16: a prologue, two convs per dilation step and a finish per stage
+    per_stage = 2 + 2 * max(len(d) for d in synth.vocoder.resblock_dilation_sizes)
+    if issued != per_stage * launches:
+        fail(f"mrf_stage issued {issued} kernel launches in {launches} stages")
+    print(f"serving: {len(forwards)} generator forwards, {launches} MRF stages, "
+          f"{issued} MRF kernel launches", flush=True)
+    return {"launches": launches, "kernel_launches": issued, "forwards": len(forwards),
+            "requests": timings}
 
 
 def check_served_stages(synth) -> list:
     """Each MRF stage the requests run, at the batch the request gives it,
     held to the plain version on the same input (bf16, 2e-2 of max|ref|);
-    one row per stage shape, with the time tile the kernel planned."""
+    one row per stage shape, with the kernel launches one stage issued."""
     import torch
 
     from everyvoice_tpu_torch.models.hifigan import model as hifigan
     from everyvoice_tpu_torch.onchip import REQUESTS
-    from everyvoice_tpu_torch.ops.mrf import _plan, mrf_stage, mrf_stage_reference
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage, mrf_stage_reference
 
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     seen = {}
 
     def checked(x, w, b, kernel_sizes, dilation_sizes, slope):
+        issued = mrf_stage.kernel_launches
         got = mrf_stage(x, w, b, kernel_sizes, dilation_sizes, slope)
+        issued = mrf_stage.kernel_launches - issued
         ref = mrf_stage_reference(x, w, b, kernel_sizes, dilation_sizes, slope).float()
         err = (got.float() - ref).abs().max().item()
         tol = 2e-2 * ref.abs().max().item()
@@ -223,8 +239,8 @@ def check_served_stages(synth) -> list:
                  f"(B={batch}, T={t}, C={c}, {x.dtype}): max diff {err} > {tol}")
         row = seen.setdefault((batch, t, c), {
             "B": batch, "T": t, "C": c, "dtype": str(x.dtype).replace("torch.", ""),
-            "tile": _plan(batch, t, c, n_sm)[0], "calls": 0, "max_abs_err": 0.0,
-            "tol": float("inf")})
+            "design": DESIGN[str(x.dtype)], "kernel_launches": issued, "calls": 0,
+            "max_abs_err": 0.0, "tol": float("inf")})
         row["calls"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["tol"] = min(row["tol"], tol)
@@ -277,12 +293,13 @@ def library_log_mel(x, window, basis, n_fft: int = 1024, hop: int = 256):
 
 
 def check_mel_kernel(gen) -> list:
-    """Log-mel kernel vs plain version at the preprocessor's two served
-    batch shapes; returns one row per shape."""
+    """Log-mel FFT kernel vs plain version at the preprocessor's two served
+    batch shapes; returns one row per shape. Then the DFT kernel, which
+    takes an n_fft that is not a power of two, at the first shape."""
     import torch
 
     from everyvoice_tpu_torch.dsp.spectral import hann_window, librosa_mel_basis
-    from everyvoice_tpu_torch.ops.mel import log_mel, log_mel_reference
+    from everyvoice_tpu_torch.ops.mel import fft_route, log_mel, log_mel_reference
 
     n_fft, hop, n_mels = 1024, 256, 80
     n_bins = n_fft // 2 + 1
@@ -291,7 +308,10 @@ def check_mel_kernel(gen) -> list:
     rows = []
     for b, s in MEL_SHAPES:
         x = (0.3 * torch.randn(b, s, generator=gen)).cuda()
+        fft_before = log_mel.fft_launches
         got = log_mel(x)
+        if log_mel.fft_launches != fft_before + 1:
+            fail(f"log_mel at n_fft {n_fft} did not take the FFT kernel")
         ref = log_mel_reference(x)
         lib = library_log_mel(x, window, basis)
         torch.cuda.synchronize()
@@ -306,11 +326,9 @@ def check_mel_kernel(gen) -> list:
         flops = b * frames * (2.5 * n_fft * math.log2(n_fft) + 4 * n_bins
                               + 2 * int((basis != 0).sum()) + n_mels)
         n_bytes = 4 * (x.numel() + n_fft + n_bins * n_mels + b * n_mels * frames)
-        # The ported algorithm's work, for the redesign: the DFT as two dense
-        # products against the cos and -sin bases, and a dense mel product.
-        dft_flops = b * frames * (4 * n_fft * n_bins + 2 * n_bins * n_mels)
         row = {
-            "B": b, "S": s, "frames": frames, "max_abs_err": err, "tol": 1e-4,
+            "B": b, "S": s, "frames": frames, "route": "fft", "kernel_launches": 1,
+            "max_abs_err": err, "tol": 1e-4,
             "library_max_abs_err": (lib - ref).abs().max().item(),
             "kernel_ms": cuda_ms(lambda: log_mel(x), 20),
             "plain_ms": cuda_ms(lambda: log_mel_reference(x), 10),
@@ -319,13 +337,27 @@ def check_mel_kernel(gen) -> list:
             "bound_by": "operations" if flops / H100_FP32_FLOPS >= n_bytes / H100_BYTES_PER_S
             else "bytes",
             "gflop": flops / 1e9, "bytes": n_bytes,
-            "dft_matmul_gflop": dft_flops / 1e9,
-            "dft_matmul_bound_ms": 1e3 * dft_flops / H100_FP32_FLOPS,
         }
         row["gflops"] = flops / (row["kernel_ms"] * 1e-3) / 1e9
-        row["dft_matmul_gflops"] = dft_flops / (row["kernel_ms"] * 1e-3) / 1e9
         print("mel " + json.dumps(row), flush=True)
         rows.append(row)
+
+    b, s = MEL_SHAPES[0]
+    args = (SR, 1000, 1000, 250)
+    if fft_route(args[1]):
+        fail("n_fft 1000 should take the DFT kernel")
+    x = (0.3 * torch.randn(b, s, generator=gen)).cuda()
+    launches, fft_before = log_mel.launches, log_mel.fft_launches
+    got = log_mel(x, *args)
+    torch.cuda.synchronize()
+    if (log_mel.launches - launches, log_mel.fft_launches - fft_before) != (1, 0):
+        fail("log_mel at n_fft 1000 did not take the DFT kernel")
+    err = (got - log_mel_reference(x, *args)).abs().max().item()
+    if not (err <= 1e-4 and torch.isfinite(got).all()):
+        fail(f"the DFT log-mel kernel disagrees with its plain version: max diff {err} > 1e-4")
+    print("mel dft " + json.dumps({
+        "B": b, "S": s, "n_fft": 1000, "hop": 250, "route": "dft", "max_abs_err": err,
+        "tol": 1e-4, "kernel_ms": cuda_ms(lambda: log_mel(x, *args), 10)}), flush=True)
     return rows
 
 
@@ -363,12 +395,13 @@ def preprocess_corpus(root: Path, card: str) -> dict:
     cpus = min(8, os.cpu_count() or 1)
 
     log_mel.launches = 0
+    log_mel.fft_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pre.preprocess(to_process=FEATURE_STEPS, cpus=cpus)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = log_mel.launches
+    launches, fft_launches = log_mel.launches, log_mel.fft_launches
 
     save = pre.save_dir
     hop = pre.audio_config["fft_hop_size"]
@@ -403,17 +436,19 @@ def preprocess_corpus(root: Path, card: str) -> dict:
     if (n_train, n_val) != (int(CORPUS_UTTERANCES * 0.9), CORPUS_UTTERANCES - int(CORPUS_UTTERANCES * 0.9)):
         fail(f"split of {n_train} + {n_val}")
     batches = len(pre.last_batch_shapes)
-    if launches == 0 or launches != batches:
-        fail(f"log_mel launched {launches} times for {batches} feature batches")
+    if launches == 0 or launches != batches or fft_launches != batches:
+        fail(f"log_mel launched {launches} times ({fft_launches} through the FFT "
+             f"kernel) for {batches} feature batches")
     row = {
         "utterances": CORPUS_UTTERANCES, "audio_s": audio_s, "wall_s": wall,
         "audio_s_per_s": audio_s / wall, "step_seconds": pre.last_step_seconds,
-        "cpus": cpus, "batches": batches, "launches": launches,
+        "cpus": cpus, "batches": batches, "launches": launches, "fft_launches": fft_launches,
         "bucket_shapes": sorted([list(k), v] for k, v in Counter(pre.last_batch_shapes).items()),
         "transfer_bytes": pre.last_transfer_bytes, "card": card,
     }
     print("preprocess " + json.dumps(row), flush=True)
-    return {"pre": pre, "cfg": cfg, "launches": launches, "row": row}
+    return {"pre": pre, "cfg": cfg, "launches": launches, "fft_launches": fft_launches,
+            "row": row}
 
 
 def check_served_features(pre) -> tuple:
@@ -423,7 +458,7 @@ def check_served_features(pre) -> tuple:
     Returns (rows, the last batch of each shape)."""
     import torch
 
-    from everyvoice_tpu_torch.ops.mel import log_mel, log_mel_reference
+    from everyvoice_tpu_torch.ops.mel import fft_route, log_mel, log_mel_reference
 
     a = pre.audio_config
     args = (a["input_sampling_rate"], a["n_fft"], a["fft_window_size"], a["fft_hop_size"],
@@ -442,8 +477,9 @@ def check_served_features(pre) -> tuple:
                 fail(f"log_mel disagrees with its plain version on a served batch "
                      f"{batch.shape}: max diff {err} > 1e-4")
             row = seen.setdefault(batch.shape, {
-                "B": batch.shape[0], "S": batch.shape[1], "calls": 0, "max_abs_err": 0.0,
-                "tol": 1e-4})
+                "B": batch.shape[0], "S": batch.shape[1],
+                "route": "fft" if fft_route(a["n_fft"]) else "dft", "kernel_launches": 1,
+                "calls": 0, "max_abs_err": 0.0, "tol": 1e-4})
             row["calls"] += 1
             row["max_abs_err"] = max(row["max_abs_err"], err)
             last[batch.shape] = batch
@@ -560,8 +596,10 @@ def main() -> int:
         "name": "mrf_stage",
         "route": "cuda",
         "source": "everyvoice_tpu_torch/ops/csrc/mrf.cu",
-        "replaces": "everyvoice_tpu/ops/mrf_pallas.py::fused_mrf",
+        "replaces": "everyvoice_tpu/ops/mrf_pallas.py:137",
         "launches": served["launches"],
+        "kernel_launches": served["kernel_launches"],
+        "design": DESIGN["torch.bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages),
         "ms": sum(r["kernel_ms"] for r in bf16),
         "plain_ms": sum(r["plain_ms"] for r in bf16),
@@ -573,8 +611,10 @@ def main() -> int:
         "name": "log_mel",
         "route": "cuda",
         "source": "everyvoice_tpu_torch/ops/csrc/mel.cu",
-        "replaces": "everyvoice_tpu/ops/mel_pallas.py::fused_log_mel",
+        "replaces": "everyvoice_tpu/ops/mel_pallas.py:67",
         "launches": prep["launches"],
+        "fft_launches": prep["fft_launches"],
+        "design": "shared-memory radix-2 Stockham FFT (n_fft a power of two)",
         "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel),
         "ms": sum(r["kernel_ms"] for r in mel_rows),
         "plain_ms": sum(r["plain_ms"] for r in mel_rows),

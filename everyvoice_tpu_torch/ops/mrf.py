@@ -4,9 +4,12 @@
 computes: the mean over parallel ResBlock1 chains, each chain a run of
 leaky-relu → dilated "SAME" conv → leaky-relu → conv → residual add per
 dilation, with rows outside the sequence zero after every conv. A CUDA tensor
-goes to the hand-written kernel in ``csrc/mrf.cu`` (one launch for the whole
-stage); a CPU tensor goes to ``mrf_stage_reference``. Nothing falls back from
-the kernel to the plain version.
+goes to the hand-written kernels in ``csrc/mrf.cu``: in bfloat16 a sequence
+of tensor-core launches (a prologue, one implicit GEMM per conv position with
+the chains side by side, a finish: 8 for a V1 stage), in float32 one
+CUDA-core launch for the whole stage. A CPU tensor goes to
+``mrf_stage_reference``. Nothing falls back from the kernels to the plain
+version.
 
 Weights use the JAX package's layout: each conv's kernel is (k·C, C) in
 tap-major order (a flax (k, C_in, C_out) kernel reshaped), already
@@ -102,8 +105,9 @@ def mrf_stage_reference(
 
 
 def _plan(batch: int, length: int, channels: int, n_sm: int) -> tuple:
-    """(time tile, grid): the largest tile up to 64k floats a row-slab that
-    still gives every resident block a work item, and a persistent grid."""
+    """(time tile, grid) of the float32 kernel: the largest tile up to 64k
+    floats a row-slab that still gives every resident block a work item, and
+    a persistent grid."""
     cap = max(128, 65536 // channels)
     tile = 128
     for cand in (2048, 1024, 512, 256):
@@ -139,9 +143,10 @@ def mrf_stage(
     dilation_sizes=((1, 3, 5),) * 3,
     slope: float = 0.1,
 ) -> torch.Tensor:
-    """One MRF stage of (B, T, C) ``x``: the CUDA kernel for a CUDA tensor,
+    """One MRF stage of (B, T, C) ``x``: the CUDA kernels for a CUDA tensor,
     the plain version for a CPU tensor. ``mrf_stage.launches`` counts the
-    kernel's launches."""
+    stages run on the card, ``mrf_stage.kernel_launches`` the kernel
+    launches they issued."""
     kernel_sizes = tuple(int(k) for k in kernel_sizes)
     dilation_sizes = tuple(tuple(int(d) for d in ds) for ds in dilation_sizes)
     _check(x, w_packed, b_packed, kernel_sizes, dilation_sizes)
@@ -166,24 +171,12 @@ def mrf_stage(
         )
     if not (x.is_contiguous() and w_packed.is_contiguous() and b_packed.is_contiguous()):
         raise ValueError("mrf_stage takes contiguous tensors")
+    if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
+        raise ValueError("mrf_stage takes x and weights that start 16-byte aligned")
 
     from everyvoice_tpu_torch.ops import _build
 
     lib = _build.load("mrf")
-    fn = lib.mrf_stage_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-        + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    halo = max(resblock1_halo(k, ds) for k, ds in zip(kernel_sizes, dilation_sizes))
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile, grid = _plan(b, t, c, n_sm)
-    window = tile + 2 * halo
-    out = torch.empty_like(x)
-    scratch = torch.empty(
-        grid * (2 * window + tile) * c, dtype=torch.float32, device=x.device
-    )
     n = len(kernel_sizes)
     ks = (ctypes.c_int * n)(*kernel_sizes)
     nd = (ctypes.c_int * n)(*(len(ds) for ds in dilation_sizes))
@@ -191,11 +184,47 @@ def mrf_stage(
         *(d for ds in dilation_sizes for d in (*ds, *(0,) * (MAX_DILATIONS - len(ds))))
     )
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(
-        x.data_ptr(), out.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(),
-        scratch.data_ptr(), b, t, c, tile, halo, grid,
-        int(x.dtype == torch.bfloat16), n, ks, nd, dl, float(slope), stream,
-    )
+    out = torch.empty_like(x)
+    if x.dtype == torch.bfloat16:
+        # Per chain: the float32 state (updated in place by the kernels) and
+        # the two bf16 activations the convs read.
+        cur = torch.empty(n, b, t, c, dtype=torch.float32, device=x.device)
+        act = torch.empty(n, b, t, c, dtype=torch.bfloat16, device=x.device)
+        yact = torch.empty_like(act)
+        issued = ctypes.c_int(0)
+        fn = lib.mrf_stage_bf16_launch
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        rc = fn(
+            x.data_ptr(), out.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(),
+            cur.data_ptr(), act.data_ptr(), yact.data_ptr(), b, t, c,
+            n, ks, nd, dl, float(slope), stream, ctypes.byref(issued),
+        )
+        mrf_stage.kernel_launches += issued.value
+    else:
+        halo = max(resblock1_halo(k, ds) for k, ds in zip(kernel_sizes, dilation_sizes))
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        tile, grid = _plan(b, t, c, n_sm)
+        window = tile + 2 * halo
+        scratch = torch.empty(
+            grid * (2 * window + tile) * c, dtype=torch.float32, device=x.device
+        )
+        fn = lib.mrf_stage_f32_launch
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        rc = fn(
+            x.data_ptr(), out.data_ptr(), w_packed.data_ptr(), b_packed.data_ptr(),
+            scratch.data_ptr(), b, t, c, tile, halo, grid,
+            n, ks, nd, dl, float(slope), stream,
+        )
+        if rc == 0:
+            mrf_stage.kernel_launches += 1
     if rc != 0:
         raise RuntimeError(f"mrf_stage kernel launch failed: CUDA error {rc}")
     mrf_stage.launches += 1
@@ -203,3 +232,4 @@ def mrf_stage(
 
 
 mrf_stage.launches = 0
+mrf_stage.kernel_launches = 0

@@ -18,8 +18,8 @@ request:
 Then it traces one run of the largest request with ``torch.profiler`` and
 prints the device's busy time (the union of kernel and copy intervals), its
 idle share of the run's wall time, the device time of its device-to-host
-copies, and device time by kernel, the MRF kernel's first. Where the trace holds no device activity it says "not
-measured". Needs a CUDA card; builds the MRF kernel at first use.
+copies, and device time by kernel, the MRF kernels' first. Where the trace holds no device activity it says "not
+measured". Needs a CUDA card; builds the MRF kernels at first use.
 """
 
 from __future__ import annotations
@@ -111,7 +111,9 @@ def trace(synth: Synthesizer, texts) -> dict:
     by_name: dict = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    mrf_us = sum(v for k, v in by_name.items() if "mrf_stage_kernel" in k)
+    # the MRF stage's kernels: mrf_conv_kernel, mrf_prologue_kernel and
+    # mrf_finish_kernel in bfloat16, mrf_stage_kernel in float32
+    mrf_us = sum(v for k, v in by_name.items() if "mrf_" in k)
     dtoh_us = sum(v for k, v in by_name.items() if "DtoH" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
@@ -119,6 +121,7 @@ def trace(synth: Synthesizer, texts) -> dict:
         "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / wall_us,
         "mrf_kernel_ms": mrf_us / 1e3,
+        "mrf_share_of_wall": mrf_us / wall_us,
         "other_device_ms": (sum(by_name.values()) - mrf_us) / 1e3,
         "dtoh_ms": dtoh_us / 1e3,
         "device_events": len(device),

@@ -31,6 +31,12 @@ CASES = {
     "v1_c256_shorter_than_halo": ((1, 5, 256), *V1),
     "two_chains_c32": ((1, 1000, 32), (3, 7), ((1, 3), (1, 3))),
     "one_chain_c96": ((3, 77, 96), (3,), ((1,),)),
+    # the served extremes of the first V1 stage (1000 frames, B = 1 and 8)
+    "v1_c256_served_b1": ((1, 8000, 256), *V1),
+    "v1_c256_served_b8": ((8, 8000, 256), *V1),
+    # T not a multiple of the bf16 kernel's 256-row tile
+    "v1_c128_ragged_tiles": ((2, 6433, 128), *V1),
+    "uneven_dilation_counts_c64": ((2, 2000, 64), (11, 3), ((1, 3, 5), (2,))),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -62,10 +68,14 @@ def test_mrf_kernel_matches_plain_version(card, case, dtype):
     shape, kernels, dils = CASES[case]
     x, w, bias = _inputs(shape, kernels, dils, dtype, card)
     before = mrf_stage.launches
+    kernels_before = mrf_stage.kernel_launches
     got = mrf_stage(x, w, bias, kernels, dils)
     ref = mrf_stage_reference(x, w, bias, kernels, dils)
     torch.cuda.synchronize()
     assert mrf_stage.launches == before + 1
+    # bf16: prologue, two convs per dilation step, finish; float32: one launch
+    issued = 2 + 2 * max(len(ds) for ds in dils) if dtype == torch.bfloat16 else 1
+    assert mrf_stage.kernel_launches == kernels_before + issued
     assert got.shape == x.shape and got.dtype == dtype and got.is_cuda
     assert torch.isfinite(got).all()
     err = (got.float() - ref.float()).abs().max().item()
@@ -89,25 +99,31 @@ def test_mrf_kernel_refuses_what_it_does_not_take(card):
 
 
 MEL_CASES = {
-    # (B, S), n_fft, win, hop
-    "served_bucket_16x131072": ((16, 131072), 1024, 1024, 256),
-    "odd_length_3x8193": ((3, 8193), 1024, 1024, 256),
-    "win_800": ((2, 25677), 1024, 800, 256),
-    # n_fft not a multiple of the kernel's 32-sample chunk
-    "n_fft_1000_hop_250": ((2, 25031), 1000, 1000, 250),
+    # (B, S), n_fft, win, hop, the kernel log_mel must take
+    "served_bucket_16x131072": ((16, 131072), 1024, 1024, 256, "fft"),
+    "odd_length_3x8193": ((3, 8193), 1024, 1024, 256, "fft"),
+    "win_800": ((2, 25677), 1024, 800, 256, "fft"),
+    "n_fft_2048_hop_512": ((2, 51211), 2048, 2048, 512, "fft"),
+    "hop_128_k8": ((2, 25605), 1024, 1024, 128, "fft"),
+    # fewer frames a block, so the staged audio fits in shared memory
+    "n_fft_2048_hop_2048": ((2, 40961), 2048, 2048, 2048, "fft"),
+    # not a power of two: the DFT kernel (and n_fft not a multiple of its
+    # 32-sample chunk)
+    "n_fft_1000_hop_250": ((2, 25031), 1000, 1000, 250, "dft"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(MEL_CASES))
 def test_log_mel_kernel_matches_plain_version(card, case):
-    (b, s), n_fft, win, hop = MEL_CASES[case]
+    (b, s), n_fft, win, hop, route = MEL_CASES[case]
     gen = torch.Generator().manual_seed(0)
     x = (0.3 * torch.randn(b, s, generator=gen)).to(card)
-    before = log_mel.launches
+    before, fft_before = log_mel.launches, log_mel.fft_launches
     got = log_mel(x, 22050, n_fft, win, hop)
     ref = log_mel_reference(x, 22050, n_fft, win, hop)
     torch.cuda.synchronize()
     assert log_mel.launches == before + 1
+    assert log_mel.fft_launches == fft_before + (route == "fft")
     assert got.shape == (b, 80, s // hop + 1) and got.is_cuda
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= 1e-4
@@ -117,11 +133,11 @@ def test_log_mel_kernel_refuses_what_it_does_not_take(card):
     """A CUDA tensor goes to the kernel or raises; nothing falls back to the
     plain version."""
     x = torch.zeros(2, 8192, device=card)
-    before = log_mel.launches
+    before, fft_before = log_mel.launches, log_mel.fft_launches
     with pytest.raises(ValueError, match="contiguous"):
         log_mel(x.t().contiguous().t())
     with pytest.raises(ValueError, match="mels"):
         log_mel(x, n_mels=256)
     with pytest.raises(TypeError):
         log_mel(x.half())
-    assert log_mel.launches == before
+    assert (log_mel.launches, log_mel.fft_launches) == (before, fft_before)
