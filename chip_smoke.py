@@ -34,7 +34,14 @@ Phases, any failure of which exits nonzero:
    and that the log-mel FFT kernel ran once per feature batch; then hold
    the log-mel kernel to its plain version on every batch the feature step
    serves, and hold the card's features of one served batch to the CPU's;
-7. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+7. train FastSpeech2 on that corpus through ``train_text_to_spec`` at the
+   default full width and depth (batch 16, bf16, 60 steps, validation audio
+   through the seeded HiFiGAN V1, so ``mrf_stage`` runs on this path too);
+   check the losses, the checkpoints (optimizer state in the JAX layout),
+   the logs and the vocoder's MRF launches; resume two steps from
+   ``last.ckpt``; hold one float32 step on the card to the CPU's; synthesize
+   from the trained checkpoint; time a step and split it with CUDA events;
+8. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -65,6 +72,11 @@ SR = 22050
 MEL_SHAPES = ((16, 131072), (16, 262144))  # the preprocessor's served buckets
 CORPUS_UTTERANCES = 512
 FEATURE_STEPS = ("audio", "text", "spec", "attn", "energy", "pitch")
+TRAIN_STEPS = 60       # about two epochs of 28 batches of 16
+TRAIN_VAL_INTERVAL = 30
+TRAIN_WARMUP = 20      # Noam warmup, shortened so the loss falls within the run
+RESUME_STEPS = 2
+WARMUP_STEPS = 3       # steps left out of the step-time median
 
 
 def fail(message: str) -> None:
@@ -538,6 +550,299 @@ def features_card_vs_cpu(cfg: dict, batch) -> dict:
     return row
 
 
+def training_config(root: Path, cfg: dict, voc_path: Path, version: str, **training) -> dict:
+    """The corpus config with a training section: FastSpeech2's default
+    model and Noam AdamW (warmup shortened), batch 16, the seeded vocoder
+    for validation audio."""
+    save = Path(cfg["preprocessing"]["save_dir"])
+    return {
+        **cfg,
+        "contact": {"contact_name": "Chip Smoke", "contact_email": "smoke@example.org"},
+        "training": {
+            "batch_size": 16, "max_steps": TRAIN_STEPS, "val_check_interval": TRAIN_VAL_INTERVAL,
+            "optimizer": {"learning_rate": 1e-3, "weight_decay": 1e-6, "betas": [0.9, 0.999],
+                          "warmup_steps": TRAIN_WARMUP},
+            "training_filelist": str(save / "training_filelist.psv"),
+            "validation_filelist": str(save / "validation_filelist.psv"),
+            "vocoder_path": str(voc_path),
+            "logger": {"save_dir": str(root / "logs"), "name": "chip-smoke", "version": version},
+            **training,
+        },
+    }
+
+
+def trace(fn) -> dict:
+    """``fn`` under torch.profiler: its CUDA kernel launches, their summed
+    device time and the traced wall (the profiler's own host overhead
+    included); None where the trace holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"kernels": None, "busy_ms": None, "wall_ms": None}
+    start = min(e.time_range.start for e in events)
+    end = max(e.time_range.end for e in events)
+    return {"kernels": len(kernels),
+            "busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            "wall_ms": (end - start) / 1e3}
+
+
+def split_step(trainer) -> dict:
+    """CUDA-event times of one bf16 training step on a training batch:
+    model forward (Viterbi included) with the losses (forward-sum
+    included), backward, optimizer; and, on the same log-attention, the
+    host Viterbi and the forward-sum (forward and backward) alone, which
+    the first two contain. Kernel launches, device busy time and traced
+    wall of a step and of the alignment, from torch.profiler."""
+    import torch
+
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.models.fs2.alignment import forward_sum_loss, viterbi_alignment
+    from everyvoice_tpu_torch.parallel import compress_for_transfer
+    from everyvoice_tpu_torch.train.loop import _decompress
+    from everyvoice_tpu_torch.utils.precision import no_tf32
+
+    host = next(trainer.dataset.batches(16, shuffle=False))
+    host.pop("basenames")
+    batch = to_device(compress_for_transfer(host, ("mel", "attn_prior")), trainer.device)
+    trainer.train_step(batch, 1.0)  # warm
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    trainer.model.train()
+    with no_tf32():
+        events[0].record()
+        losses = trainer.losses(batch, 1.0)
+        events[1].record()
+        for p in trainer.params.values():
+            p.grad = None
+        losses["total"].backward()
+        events[2].record()
+        trainer.optimizer.step(trainer.params, {n: p.grad for n, p in trainer.params.items()},
+                               trainer.opt_state)
+        events[3].record()
+        plain = _decompress(batch)
+        out = trainer.model(plain["text"], plain["text_lengths"], **trainer._model_kwargs(plain))
+        logprob = out["attn_logprob"].detach().requires_grad_(True)
+        lengths = (batch["text_lengths"], batch["mel_lengths"])
+
+        def alignment():
+            viterbi_alignment(logprob.detach(), *lengths)
+            forward_sum_loss(logprob, *lengths).backward()
+
+        torch.cuda.synchronize()
+        events[4].record()
+        viterbi_alignment(logprob.detach(), *lengths)
+        events[5].record()
+        forward_sum_loss(logprob, *lengths).backward()
+        events[6].record()
+        torch.cuda.synchronize()
+        step_trace = trace(lambda: trainer.train_step(batch, 1.0))
+        alignment_trace = trace(alignment)
+    return {
+        "forward_ms": events[0].elapsed_time(events[1]),
+        "backward_ms": events[1].elapsed_time(events[2]),
+        "optimizer_ms": events[2].elapsed_time(events[3]),
+        "viterbi_ms": events[4].elapsed_time(events[5]),
+        "forward_sum_ms": events[5].elapsed_time(events[6]),
+        "kernels_per_step": step_trace["kernels"], "alignment_kernels": alignment_trace["kernels"],
+        "traced_step_ms": step_trace["wall_ms"], "traced_busy_ms": step_trace["busy_ms"],
+    }
+
+
+def float32_step_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> dict:
+    """One float32 training step, dropout off, from the trained checkpoint's
+    parameters, on one batch of 2 rows, on the card and on the CPU: losses
+    and the global gradient norm within 1e-3 relative."""
+    from everyvoice_tpu_torch.config import fs2_training_config
+    from everyvoice_tpu_torch.dataloader import FastSpeech2Dataset
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.models.layers import Dropout
+    from everyvoice_tpu_torch.parallel import compress_for_transfer
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+    from everyvoice_tpu_torch.train.loop import FastSpeech2Trainer
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    config = fs2_training_config(config)
+    ckpt = load_checkpoint(ckpt_path)
+    hp = ckpt["hyper_parameters"]
+    rows = generic_psv_filelist_reader(config["training"]["training_filelist"])
+    ds = FastSpeech2Dataset(rows, config, hp["lang2id"], hp["speaker2id"])
+    host = next(ds.batches(2, shuffle=False))
+    host.pop("basenames")
+    host = compress_for_transfer(host, ("mel", "attn_prior"))
+    result = {}
+    for device in ("cuda", "cpu"):
+        trainer = FastSpeech2Trainer(config, ds, ds, hp["lang2id"], hp["speaker2id"],
+                                     run_dir=run_root / f"f32-{device}",
+                                     compute_dtype="float32", device=device)
+        for module in trainer.model.modules():
+            if isinstance(module, Dropout):
+                module.p = 0.0
+        trainer.load_params(ckpt["state_dict"])
+        trainer.opt_state = trainer.optimizer.init(trainer.params)
+        losses = trainer.train_step(to_device(host, trainer.device), 1.0)
+        result[device] = {**{k: v.item() for k, v in losses.items()},
+                          "grad_norm": trainer.grad_norm.item()}
+    diffs = {k: abs(result["cuda"][k] - v) / max(abs(v), 1e-12) for k, v in result["cpu"].items()}
+    row = {"rows": 2, "card": result["cuda"], "cpu": result["cpu"], "max_rel_diff": max(diffs.values())}
+    print("train float32 card vs cpu " + json.dumps(row), flush=True)
+    if row["max_rel_diff"] > 1e-3:
+        fail(f"the card's float32 training step disagrees with the CPU's: {diffs}")
+    return row
+
+
+def check_run(trainer, expect_tagged: int) -> list:
+    """The run's files: metrics, hparams, an event file, last.ckpt and the
+    tagged checkpoints, each loading with its optimizer state in the JAX
+    layout (the moments' trees are the parameters' tree). Returns the
+    logged training records."""
+    import numpy as np
+
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    run = trainer.run_dir
+    for name in ("metrics.jsonl", "hparams.yaml"):
+        if not (run / name).is_file():
+            fail(f"the training run wrote no {name}")
+    if not list(run.glob("events.out.tfevents.*")):
+        fail("the training run wrote no event file")
+    tagged = sorted(trainer.ckpt_dir.glob("epoch=*-step=*-loss=*.ckpt"))
+    if not (trainer.ckpt_dir / "last.ckpt").is_file() or len(tagged) != expect_tagged:
+        fail(f"checkpoints: {sorted(p.name for p in trainer.ckpt_dir.iterdir())}")
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            return [x for k, v in sorted(tree.items()) for x in leaves(v, prefix + (k,))]
+        return [(prefix, np.shape(tree))]
+
+    for path in [trainer.ckpt_dir / "last.ckpt", *tagged]:
+        ckpt = load_checkpoint(path)
+        opt = ckpt["optimizer_states"]
+        params = leaves(ckpt["state_dict"])
+        if "alignment" not in ckpt["state_dict"]["params"]:
+            fail(f"{path.name} has no alignment encoder")
+        if (sorted(opt) != ["0", "1", "2"] or opt["1"] != {}
+                or leaves(opt["0"]["mu"]) != params or leaves(opt["0"]["nu"]) != params
+                or int(opt["0"]["count"]) != ckpt["global_step"]
+                or int(opt["2"]["count"]) != ckpt["global_step"]):
+            fail(f"{path.name}: the optimizer state is not in the JAX package's layout")
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in records if "training/total" in r]
+
+
+def train_phase(root: Path, cfg: dict, voc_path: Path, card: str) -> dict:
+    """The main path's training slice: ``train_text_to_spec`` on the
+    preprocessed corpus at full width and depth, on the card, then a resume
+    from ``last.ckpt``; every check above."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.train import loop
+    from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec
+
+    config = training_config(root, cfg, voc_path, "train")
+    t = config["training"]
+    print("train overrides " + json.dumps({
+        "max_steps": t["max_steps"], "val_check_interval": t["val_check_interval"],
+        "warmup_steps": t["optimizer"]["warmup_steps"], "batch_size": t["batch_size"],
+        "logger": t["logger"], "compute_precision": "auto"}), flush=True)
+
+    forwards = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda module, *_: forwards.append(1) if isinstance(module, HiFiGANGenerator) else None)
+    step_s = []
+    plain_step = loop.FastSpeech2Trainer.train_step
+
+    def timed_step(self, batch, bin_ramp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_step(self, batch, bin_ramp)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    loop.FastSpeech2Trainer.train_step = timed_step
+    mrf_stage.launches = 0
+    mrf_stage.kernel_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        trainer = train_text_to_spec(config, log_every=1)  # the card, 'auto' precision
+        wall = time.perf_counter() - t0
+    finally:
+        loop.FastSpeech2Trainer.train_step = plain_step
+        hook.remove()
+    launches, vocoder_forwards = mrf_stage.launches, len(forwards)
+    peak = torch.cuda.max_memory_allocated()
+    if trainer.device.type != "cuda" or trainer.compute_dtype != "bfloat16":
+        fail(f"the trainer resolved to {trainer.compute_dtype} on {trainer.device}")
+    if launches == 0 or launches != 4 * vocoder_forwards:
+        fail(f"mrf_stage launched {launches} times for {vocoder_forwards} vocoder forwards "
+             "in validation")
+    records = check_run(trainer, expect_tagged=TRAIN_STEPS // TRAIN_VAL_INTERVAL)
+    totals = [r["training/total"] for r in records]
+    values = [v for r in records for k, v in r.items() if k.startswith("training/")]
+    if len(totals) != TRAIN_STEPS or not np.isfinite(values).all():
+        fail(f"{len(totals)} logged steps, finite: {np.isfinite(values).all()}")
+    first, last = float(np.mean(totals[:10])), float(np.mean(totals[-10:]))
+    if not last < first:
+        fail(f"the training loss did not fall: first 10 steps {first}, last 10 {last}")
+
+    resume = training_config(root, cfg, voc_path, "resume", max_steps=TRAIN_STEPS + RESUME_STEPS,
+                             finetune_checkpoint=str(trainer.ckpt_dir / "last.ckpt"))
+    resumed = train_text_to_spec(resume, log_every=1)
+    resumed_steps = [r["step"] for r in check_run(resumed, expect_tagged=1)]
+    if resumed.resumed != "full" or resumed_steps != list(range(TRAIN_STEPS + 1, TRAIN_STEPS
+                                                                 + RESUME_STEPS + 1)):
+        fail(f"resume: mode {resumed.resumed}, steps {resumed_steps}")
+
+    split = split_step(trainer)
+    f32 = float32_step_card_vs_cpu(config, trainer.ckpt_dir / "last.ckpt", root / "f32")
+    median_ms = 1e3 * float(np.median(step_s[WARMUP_STEPS:TRAIN_STEPS]))
+    steps_per_s = 1e3 / median_ms
+    row = {
+        "steps": len(totals), "resumed_steps": len(resumed_steps), "wall_s": wall,
+        "median_step_ms": median_ms, "steps_per_s": steps_per_s,
+        "padded_frames_per_s": steps_per_s * t["batch_size"] * trainer.model.max_frames,
+        "peak_memory_gb": peak / 1e9, "loss_first10": first, "loss_last10": last,
+        **split, "vocoder_forwards": vocoder_forwards, "mrf_launches": launches,
+        "float32_max_rel_diff": f32["max_rel_diff"], "card": card,
+    }
+    print("train " + json.dumps(row), flush=True)
+    return {"trainer": trainer, "launches": launches, "row": row}
+
+
+def synthesize_trained(ckpt_path: Path, voc_path: Path, out_dir: Path) -> dict:
+    """The 1-text request from the trained checkpoint, on the card, with the
+    serving phase's checks."""
+    import numpy as np
+
+    from everyvoice_tpu_torch.models.fs2.synthesize import Synthesizer
+    from everyvoice_tpu_torch.onchip import TEXTS
+
+    synth = Synthesizer(ckpt_path, voc_path)
+    if synth.device.type != "cuda":
+        fail(f"Synthesizer resolved to {synth.device}")
+    [res] = synth.synthesize(TEXTS[:1])
+    hop = synth._samples_per_frame()
+    wav, mel = res["wav"], res["mel"]
+    if wav is None or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
+        fail("synthesis from the trained checkpoint: wav missing, not finite or outside [-1, 1]")
+    if wav.shape != (mel.shape[0] * hop,) or not synth.write_outputs([res], out_dir, ("wav",)):
+        fail(f"synthesis from the trained checkpoint: wav of {wav.shape} for {mel.shape[0]} frames")
+    row = {"frames": int(mel.shape[0]), "samples": int(wav.shape[0]),
+           "durations": [int(d) for d in res["durations"][0]]}
+    print("trained synthesis " + json.dumps(row), flush=True)
+    return row
+
+
 def timed_build(name: str) -> tuple:
     from everyvoice_tpu_torch.ops import _build
 
@@ -584,12 +889,14 @@ def main() -> int:
         del synth
         reference_check(fs2_path, voc_path)
 
-    mel_rows = check_mel_kernel(torch.Generator().manual_seed(1))
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        prep = preprocess_corpus(Path(tmp), card)
+        mel_rows = check_mel_kernel(torch.Generator().manual_seed(1))
+        prep = preprocess_corpus(tmp, card)
         served_mel, batches = check_served_features(prep["pre"])
         time_feature_program(prep["pre"], batches, mel_rows)
         features_card_vs_cpu(prep["cfg"], batches[max(batches)])
+
+        trained = train_phase(tmp, prep["cfg"], voc_path, card)
+        synthesize_trained(trained["trainer"].ckpt_dir / "last.ckpt", voc_path, tmp / "trained")
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -597,7 +904,9 @@ def main() -> int:
         "route": "cuda",
         "source": "everyvoice_tpu_torch/ops/csrc/mrf.cu",
         "replaces": "everyvoice_tpu/ops/mrf_pallas.py:137",
-        "launches": served["launches"],
+        "launches": served["launches"] + trained["launches"],
+        "serving_launches": served["launches"],
+        "training_launches": trained["launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages),

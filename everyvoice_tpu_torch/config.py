@@ -5,12 +5,16 @@ The JAX package validates these dicts with pydantic models
 ``config/preprocessing_config.py``, ``config/text_config.py``); the port has
 no pydantic, so it fills in the same defaults here and reads plain dicts.
 The defaults cover the model section of each model's config, the audio and
-text sections they share, and the preprocessing section with its datasets.
+text sections they share, the preprocessing section with its datasets, and
+FastSpeech2's training section with its optimizer and logger
+(``fs2_training_config``, whose ``model_checkpoint_dump`` is the JAX
+package's ``FastSpeech2Config.model_checkpoint_dump``).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 
 CONFORMER = {
     "layers": 4, "heads": 2, "input_dim": 256, "feedforward_dim": 1024,
@@ -157,3 +161,158 @@ def preprocessing_config(config: dict) -> dict:
         datasets.append(dataset)
     pre["source_data"] = datasets
     return {**config, "preprocessing": pre, "text": merge_defaults(TEXT, config.get("text"))}
+
+
+# Optimizer defaults by name (config/shared_types.py:236-259).
+OPTIMIZERS = {
+    "adam": {"learning_rate": 1e-4, "eps": 1e-8, "weight_decay": 0.01,
+             "betas": [0.9, 0.98], "name": "adam"},
+    "adamw": {"learning_rate": 1e-4, "eps": 1e-8, "weight_decay": 0.01,
+              "betas": [0.9, 0.98], "name": "adamw"},
+    "rms": {"learning_rate": 1e-4, "eps": 1e-8, "weight_decay": 0.01,
+            "alpha": 0.99, "name": "rms"},
+    "noam": {"learning_rate": 1e-4, "eps": 1e-8, "weight_decay": 0.01,
+             "betas": [0.9, 0.98], "name": "noam", "warmup_steps": 1000},
+}
+FS2_OPTIMIZER = {**OPTIMIZERS["noam"], "learning_rate": 1e-3, "weight_decay": 1e-6,
+                 "betas": [0.9, 0.999]}
+LOGGER = {
+    "name": "BaseExperiment",
+    "save_dir": "logs_and_checkpoints",
+    "sub_dir_callable": "everyvoice_tpu.utils.get_current_time",
+    "version": "base",
+}
+# BaseTrainingConfig (config/shared_types.py:262-302) with FastSpeech2's
+# fields (models/fs2/config.py:106-129), in the JAX package's field order.
+FS2_TRAINING = {
+    "batch_size": 16,
+    "save_top_k_ckpts": 5,
+    "ckpt_steps": None,
+    "ckpt_epochs": 1,
+    "val_check_interval": 500,
+    "check_val_every_n_epoch": None,
+    "max_epochs": 1000,
+    "max_steps": 100000,
+    "finetune_checkpoint": None,
+    "training_filelist": "path/to/your/preprocessed/training_filelist.psv",
+    "validation_filelist": "path/to/your/preprocessed/validation_filelist.psv",
+    "filelist_loader": "everyvoice_tpu.utils.generic_psv_filelist_reader",
+    "logger": LOGGER,
+    "val_data_workers": 0,
+    "train_data_workers": 4,
+    "use_weighted_sampler": False,
+    "optimizer": FS2_OPTIMIZER,
+    "vocoder_path": None,
+    "mel_loss_weight": 1.0,
+    "postnet_loss_weight": 1.0,
+    "pitch_loss_weight": 0.1,
+    "energy_loss_weight": 0.1,
+    "duration_loss_weight": 0.1,
+    "attn_ctc_loss_weight": 0.1,
+    "attn_bin_loss_weight": 0.1,
+    "attn_bin_loss_warmup_epochs": 100,
+}
+# Path-typed fields: the JAX package's checkpoint dump drops a Path value
+# (a None stays). (section keys, field) pairs; "*" is every dataset.
+PATH_FIELDS = (
+    ((), "path_to_model_config_file"), ((), "path_to_training_config_file"),
+    ((), "path_to_preprocessing_config_file"), ((), "path_to_text_config_file"),
+    (("training",), "finetune_checkpoint"), (("training",), "training_filelist"),
+    (("training",), "validation_filelist"), (("training",), "vocoder_path"),
+    (("training", "logger"), "save_dir"),
+    (("preprocessing",), "save_dir"), (("preprocessing",), "path_to_audio_config_file"),
+    (("preprocessing", "source_data", "*"), "data_dir"),
+    (("preprocessing", "source_data", "*"), "filelist"),
+)
+
+
+def optimizer_config(given: dict | None) -> dict:
+    """A FastSpeech2 optimizer section: FastSpeech2's Noam defaults when none
+    is given, else the given fields over the defaults of the optimizer it
+    names (a given section is validated from its class's defaults)."""
+    if given is None:
+        return copy.deepcopy(FS2_OPTIMIZER)
+    name = given.get("name", "noam")
+    if name not in OPTIMIZERS:
+        raise ValueError(f"Unknown optimizer {name!r}: expected one of {sorted(OPTIMIZERS)}")
+    return merge_defaults(OPTIMIZERS[name], given)
+
+
+def fs2_training_config(config: dict) -> dict:
+    """A FastSpeech2 training config with every default of the JAX
+    package's ``FastSpeech2Config`` filled in: model, training (optimizer,
+    logger), preprocessing (audio, datasets) and text. Raises where that
+    validator does: no ``contact``, or a dataset without permission."""
+    if "contact" not in config:
+        raise ValueError(
+            "EveryVoice models require contact information; please add a "
+            "'contact' section (contact_name, contact_email)."
+        )
+    pre = preprocessing_config(config)
+    training = merge_defaults(FS2_TRAINING, config.get("training"))
+    training["optimizer"] = optimizer_config((config.get("training") or {}).get("optimizer"))
+    out = {"VERSION": "1.0", **config}
+    for key in ("model", "training", "preprocessing", "text"):
+        out.setdefault(f"path_to_{key}_config_file", None)
+    out["model"] = merge_defaults(FS2_MODEL, config.get("model"))
+    out["training"] = training
+    out["preprocessing"] = {"VERSION": "1.0", "path_to_audio_config_file": None,
+                            **pre["preprocessing"]}
+    out["text"] = pre["text"]
+    return out
+
+
+def _drop_paths(node, section: tuple, field: str):
+    if not section:
+        if isinstance(node, dict) and node.get(field) is not None:
+            node.pop(field)
+        return
+    head, rest = section[0], section[1:]
+    children = node if head == "*" else [node.get(head)] if isinstance(node, dict) else []
+    for child in children or []:
+        _drop_paths(child, rest, field)
+
+
+def model_checkpoint_dump(config: dict) -> dict:
+    """The config as the JAX package writes it into a checkpoint header and
+    ``hparams.yaml``: JSON types, every path-typed field that holds a path
+    dropped (a checkpoint crosses machines)."""
+    out = json.loads(json.dumps(config))
+    for section, field in PATH_FIELDS:
+        _drop_paths(out, section, field)
+    return out
+
+
+def apply_overrides(config: dict, overrides) -> dict:
+    """``key.path=value`` overrides (the CLI's ``-c``) applied to a copy of
+    ``config``, the values coerced as the JAX package's CLI does."""
+    out = copy.deepcopy(config)
+    for arg in overrides or ():
+        if "=" not in arg:
+            raise ValueError(f"Invalid config override '{arg}'; expected key.path=value")
+        key, _, value = arg.partition("=")
+        *parents, last = key.split(".")
+        node = out
+        for part in parents:  # an integer part indexes a list
+            node = node[int(part)] if isinstance(node, list) else node.setdefault(part, {})
+        node[int(last) if isinstance(node, list) else last] = _coerce_override(value)
+    return out
+
+
+def _coerce_override(value: str):
+    text = value.strip()
+    if text.lower() in ("true", "false"):
+        return text.lower() == "true"
+    if text.lower() in ("null", "none", ""):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    if text.startswith(("[", "{")):
+        try:
+            return json.loads(text)
+        except json.JSONDecodeError:
+            pass
+    return value

@@ -16,10 +16,14 @@ the tables below pair each leaf with a torch parameter and a layout change:
   the out kernel (heads, head_dim, dim) ↔ Linear (dim, heads·head_dim).
 
 ``flax_to_torch`` consumes every leaf and raises on a leaf it did not use or
-a torch parameter it did not fill, except FastSpeech2's ``alignment``
-subtree (used only in training), which it returns as skipped.
+a torch parameter it did not fill. FastSpeech2's ``alignment`` subtree (the
+alignment encoder, trained with the model) maps both ways like the rest. A
+tree that has no ``alignment`` subtree at all (the JAX package initialises
+one only when its ``init`` sees a mel) leaves the model's own alignment
+weights in place, and ``flax_to_torch`` reports the flax paths it lacked.
 ``torch_to_flax`` is the inverse; it lets a machine without JAX write
-checkpoints in the JAX package's layout.
+checkpoints in the JAX package's layout. Both also map an optimizer's
+moments, which have the parameters' shapes.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
 from everyvoice_tpu_torch.models.layers import ConformerStack, VariancePredictor
 
-SKIPPED_SUBTREES = ("alignment",)
+OPTIONAL_SUBTREES = ("alignment",)
 
 
 # Each kind: (flax → torch, torch → flax given the flax shape's head count).
@@ -139,6 +143,10 @@ def _fs2_table(model: FastSpeech2) -> list:
     out += _embed(p + ("pitch_embed",), "pitch_embed")
     out += _embed(p + ("energy_embed",), "energy_embed")
     out += _dense(p + ("mel_head",), "mel_head")
+    if model.alignment is not None:
+        a = p + ("alignment",)
+        for i, name in enumerate(("key_in", "key_out", "query_in", "query_mid", "query_out")):
+            out += _conv(a + (f"Conv_{i}",), f"alignment.{name}")
     if model.postnet is not None:
         for i in range(len(model.postnet.convs)):
             out += _conv(p + ("postnet", f"Conv_{i}"), f"postnet.convs.{i}")
@@ -190,28 +198,30 @@ def _flatten(tree, prefix=()) -> dict:
 
 
 def flax_to_torch(params_tree: dict, model) -> tuple:
-    """(state_dict for ``model``, skipped flax paths) from a flax tree."""
+    """(state_dict for ``model``, absent flax paths) from a flax tree. The
+    absent paths are those of an optional subtree the tree does not have at
+    all; their state_dict entries are the model's current values."""
     leaves = _flatten(params_tree)
-    state, used = {}, set()
+    present = {p[:2] for p in leaves}
+    current = model.state_dict()
+    state, used, absent = {}, set(), []
     for fpath, tkey, kind in _table(model):
         if fpath not in leaves:
+            if fpath[1] in OPTIONAL_SUBTREES and fpath[:2] not in present:
+                state[tkey] = current[tkey].detach().cpu().clone()
+                absent.append("/".join(fpath))
+                continue
             raise KeyError(f"flax tree has no {'/'.join(fpath)} for {tkey}")
         arr = np.array(leaves[fpath], dtype=np.float32)
         state[tkey] = torch.from_numpy(np.ascontiguousarray(_to_torch(arr, kind)))
         used.add(fpath)
-    skipped = sorted(
-        "/".join(p) for p in leaves
-        if p not in used and isinstance(model, FastSpeech2)
-        and len(p) > 1 and p[1] in SKIPPED_SUBTREES
-    )
     unused = sorted("/".join(p) for p in leaves if p not in used)
-    unused = [p for p in unused if p not in skipped]
     if unused:
         raise ValueError(f"flax leaves with no torch counterpart: {unused}")
     unfilled = sorted(set(model.state_dict()) - set(state))
     if unfilled:
         raise ValueError(f"torch parameters with no flax leaf: {unfilled}")
-    return state, skipped
+    return state, sorted(absent)
 
 
 def torch_to_flax(state_dict: dict, model) -> dict:

@@ -3,7 +3,9 @@
 
 ``read_wav`` is the JAX package's stdlib parser with its RIFF branch for IEEE
 float files; the JAX package's native C codec decodes to the same values.
-``write_wav`` writes PCM byte for byte as the JAX package's native writer.
+``write_wav`` writes PCM byte for byte as the JAX package's native writer;
+``write_wav_bytes`` encodes in memory as the JAX package's function of that
+name does (TensorBoard audio summaries).
 
 16-bit samples are rounded as the JAX package's native writer
 (``native/wav_io.c::wav_write_i16``) rounds them, which it uses whenever it
@@ -118,3 +120,19 @@ def write_wav(path: Path | str, audio: np.ndarray, sample_rate: int, bit_depth: 
         wf.setsampwidth(sampwidth)
         wf.setframerate(sample_rate)
         wf.writeframes(pcm.tobytes())
+
+
+def write_wav_bytes(audio: np.ndarray, sample_rate: int) -> bytes:
+    """In-memory 16-bit PCM WAV of (samples,) float audio, rounded half to
+    even as the JAX package's ``write_wav_bytes`` rounds."""
+    import io
+
+    audio = np.asarray(audio, np.float32).reshape(-1)
+    pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).round().astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sample_rate)
+        wf.writeframes(pcm.tobytes())
+    return buf.getvalue()

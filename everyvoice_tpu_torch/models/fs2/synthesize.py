@@ -60,9 +60,10 @@ def load_fs2_from_checkpoint(ckpt_path: Path | str, compute_dtype: str = "float3
         n_speakers=max(len(speaker2id), 1), n_langs=max(len(lang2id), 1),
         compute_dtype=compute_dtype,
     )
-    state, skipped = flax_to_torch(ckpt["state_dict"], model)
-    if skipped:
-        logger.info(f"Not loaded (training only): {len(skipped)} alignment parameters")
+    state, absent = flax_to_torch(ckpt["state_dict"], model)
+    if absent:
+        logger.info(f"The checkpoint has no alignment encoder ({len(absent)} parameters); "
+                    "serving does not use it")
     model.load_state_dict(state)
     return model.to(device).eval(), config, text_processor, lang2id, speaker2id
 

@@ -10,6 +10,11 @@ value (not -inf), so fully masked (padded) query rows stay finite;
 (T, C) of each item, so callers keep the JAX package's padded lengths.
 ``dtype`` is the compute dtype of matmuls and convolutions; parameters stay
 float32.
+
+Dropout sits at every site where the JAX package has it. It acts only in
+training mode (``module.train()``), so serving (``.eval()``) is unchanged,
+and it draws its masks from the ``torch.Generator`` that
+``set_dropout_generator`` gives it, never from the global RNG.
 """
 
 from __future__ import annotations
@@ -35,6 +40,39 @@ def sinusoidal_positional_encoding(length: int, dim: int) -> np.ndarray:
 def lengths_to_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """(B,) lengths → (B, T) boolean validity mask."""
     return torch.arange(max_length, device=lengths.device)[None, :] < lengths[:, None]
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode, keep each element with
+    probability 1 - p and scale the kept ones by 1/(1 - p); the identity in
+    eval mode. ``shared_dims`` leading axes share one mask (flax's
+    ``broadcast_dropout`` of attention weights over batch and heads)."""
+
+    def __init__(self, p: float, shared_dims: int = 0):
+        super().__init__()
+        self.p = float(p)
+        self.shared_dims = shared_dims
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "dropout in training mode needs a torch.Generator; call "
+                "set_dropout_generator(model, generator) first"
+            )
+        keep = 1.0 - self.p
+        shape = (1,) * self.shared_dims + tuple(x.shape[self.shared_dims:])
+        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Draw every dropout mask of ``model`` from ``generator``."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -69,23 +107,28 @@ def group_norm_1(x: torch.Tensor, norm: nn.GroupNorm, dtype: torch.dtype) -> tor
 
 
 class FeedForwardModule(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.norm = nn.LayerNorm(dim, eps=NORM_EPS)
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
+        self.drop_hidden = Dropout(dropout)
+        self.drop_out = Dropout(dropout)
 
     def forward(self, x):
         x = layer_norm(x, self.norm, self.dtype)
-        x = F.silu(linear(x, self.fc1, self.dtype))
-        return linear(x, self.fc2, self.dtype)
+        x = self.drop_hidden(F.silu(linear(x, self.fc1, self.dtype)))
+        return self.drop_out(linear(x, self.fc2, self.dtype))
 
 
 class ConformerConvModule(nn.Module):
-    def __init__(self, dim: int, kernel_size: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, kernel_size: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop = Dropout(dropout)
         self.norm = nn.LayerNorm(dim, eps=NORM_EPS)
         self.pointwise_in = nn.Linear(dim, 2 * dim)
         self.depthwise = nn.Conv1d(dim, dim, kernel_size, groups=dim)
@@ -98,18 +141,21 @@ class ConformerConvModule(nn.Module):
         x = torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
         x = conv1d_same(x, self.depthwise, self.dtype)
         x = F.silu(group_norm_1(x, self.group_norm, self.dtype))
-        return linear(x, self.pointwise_out, self.dtype)
+        return self.drop(linear(x, self.pointwise_out, self.dtype))
 
 
 class MultiHeadAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` self-attention: per-head query,
     key and value projections (flax kernels (dim, heads, head_dim)), an
     output projection (flax kernel (heads, head_dim, dim)), queries scaled by
-    1/sqrt(head_dim) before the product, softmax taken in float32."""
+    1/sqrt(head_dim) before the product, softmax taken in float32, and the
+    attention weights' dropout mask shared over batch and heads."""
 
-    def __init__(self, dim: int, heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop = Dropout(dropout, shared_dims=2)
         self.heads = heads
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
@@ -127,25 +173,26 @@ class MultiHeadAttention(nn.Module):
         logits = q @ k.transpose(-1, -2)  # (B, H, T, T)
         pair = mask[:, None, None, :] & mask[:, None, :, None]
         logits = logits.masked_fill(~pair, torch.finfo(logits.dtype).min)
-        weights = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        weights = self.drop(torch.softmax(logits.float(), dim=-1).to(self.dtype))
         y = (weights @ v).transpose(1, 2).reshape(b, t, dim)
         return linear(y, self.out, self.dtype)
 
 
 class ConformerBlock(nn.Module):
-    def __init__(self, dim, heads, ff_dim, conv_kernel_size, dtype=torch.float32):
+    def __init__(self, dim, heads, ff_dim, conv_kernel_size, dtype=torch.float32, dropout=0.0):
         super().__init__()
         self.dtype = dtype
-        self.ff1 = FeedForwardModule(dim, ff_dim, dtype)
+        self.ff1 = FeedForwardModule(dim, ff_dim, dtype, dropout)
         self.attn_norm = nn.LayerNorm(dim, eps=NORM_EPS)
-        self.attn = MultiHeadAttention(dim, heads, dtype)
-        self.conv = ConformerConvModule(dim, conv_kernel_size, dtype)
-        self.ff2 = FeedForwardModule(dim, ff_dim, dtype)
+        self.attn = MultiHeadAttention(dim, heads, dtype, dropout)
+        self.attn_drop = Dropout(dropout)
+        self.conv = ConformerConvModule(dim, conv_kernel_size, dtype, dropout)
+        self.ff2 = FeedForwardModule(dim, ff_dim, dtype, dropout)
         self.final_norm = nn.LayerNorm(dim, eps=NORM_EPS)
 
     def forward(self, x, mask):
         x = x + 0.5 * self.ff1(x)
-        x = x + self.attn(layer_norm(x, self.attn_norm, self.dtype), mask)
+        x = x + self.attn_drop(self.attn(layer_norm(x, self.attn_norm, self.dtype), mask))
         x = x + self.conv(x, mask)
         x = x + 0.5 * self.ff2(x)
         x = layer_norm(x, self.final_norm, self.dtype)
@@ -156,18 +203,20 @@ class ConformerStack(nn.Module):
     """Positional encoding, then ``layers`` Conformer blocks; the residual
     stream runs in the compute dtype and the output is float32."""
 
-    def __init__(self, layers, dim, heads, ff_dim, conv_kernel_size, dtype=torch.float32):
+    def __init__(self, layers, dim, heads, ff_dim, conv_kernel_size, dtype=torch.float32,
+                 dropout=0.0):
         super().__init__()
         self.dim = dim
         self.dtype = dtype
+        self.drop = Dropout(dropout)
         self.blocks = nn.ModuleList(
-            ConformerBlock(dim, heads, ff_dim, conv_kernel_size, dtype)
+            ConformerBlock(dim, heads, ff_dim, conv_kernel_size, dtype, dropout)
             for _ in range(layers)
         )
 
     def forward(self, x, mask):
         pos = torch.from_numpy(sinusoidal_positional_encoding(x.shape[1], self.dim))
-        x = (x + pos.to(x.device)[None]).to(self.dtype)
+        x = self.drop((x + pos.to(x.device)[None]).to(self.dtype))
         for block in self.blocks:
             x = block(x, mask)
         return x.float()
@@ -178,10 +227,11 @@ class VariancePredictor(nn.Module):
     separable convs (a depthwise conv, then a 1x1 conv) by default."""
 
     def __init__(self, n_layers, kernel_size, in_dim, hidden_dim, depthwise=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout=0.0):
         super().__init__()
         self.dtype = dtype
         self.depthwise = depthwise
+        self.drop = Dropout(dropout)
         self.dw_convs = nn.ModuleList()
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
@@ -201,7 +251,7 @@ class VariancePredictor(nn.Module):
             if self.depthwise:
                 x = conv1d_same(x, self.dw_convs[i], self.dtype)
             x = F.relu(conv1d_same(x, conv, self.dtype))
-            x = layer_norm(x, self.norms[i], self.dtype)
+            x = self.drop(layer_norm(x, self.norms[i], self.dtype))
         out = F.linear(x.float(), self.head.weight, self.head.bias)[..., 0]
         return torch.where(mask, out, torch.zeros((), device=out.device))
 
@@ -224,9 +274,11 @@ def regulate_length(encodings: torch.Tensor, durations: torch.Tensor, max_frames
 class Postnet(nn.Module):
     """5-layer conv postnet refining the float32 mel."""
 
-    def __init__(self, n_mels, channels=512, kernel_size=5, n_layers=5, dtype=torch.float32):
+    def __init__(self, n_mels, channels=512, kernel_size=5, n_layers=5, dtype=torch.float32,
+                 dropout=0.5):
         super().__init__()
         self.dtype = dtype
+        self.drop = Dropout(dropout)
         dims = [n_mels] + [channels] * (n_layers - 1) + [n_mels]
         self.convs = nn.ModuleList(
             nn.Conv1d(dims[i], dims[i + 1], kernel_size) for i in range(n_layers)
@@ -238,7 +290,7 @@ class Postnet(nn.Module):
     def forward(self, mel, mask):
         x = mel.to(self.dtype)
         for conv, norm in zip(self.convs[:-1], self.norms):
-            x = torch.tanh(group_norm_1(conv1d_same(x, conv, self.dtype), norm, self.dtype))
-        x = conv1d_same(x, self.convs[-1], self.dtype)
+            x = self.drop(torch.tanh(group_norm_1(conv1d_same(x, conv, self.dtype), norm, self.dtype)))
+        x = self.drop(conv1d_same(x, self.convs[-1], self.dtype))
         out = mel + x.float()
         return torch.where(mask[..., None], out, torch.zeros((), device=out.device))

@@ -201,6 +201,19 @@ class TextProcessor:
                 ) from e
         return encoded
 
+    def encode_escaped_string_sequence(
+        self,
+        string_of_tokens: str,
+        split_character: str = CHARACTER_JOINER,
+        joiner_substitution: str = JOINER_SUBSTITUTION,
+    ) -> list:
+        """Ids of a joined token string (a filelist's ``character_tokens``),
+        empty pieces dropped."""
+        if not split_character:
+            raise ValueError("An escaped string sequence needs a character to split on")
+        tokens = self.split_tokens(string_of_tokens, split_character, joiner_substitution)
+        return self.encode_string_tokens([token for token in tokens if token])
+
     def token_sequence_to_text_sequence(self, sequence: list) -> list:
         return [self._id_to_symbol[i] for i in sequence]
 

@@ -1,4 +1,5 @@
-"""Checkpoint IO shared with the JAX package."""
+"""Checkpoint IO shared with the JAX package, and FastSpeech2 training
+(``loop.FastSpeech2Trainer``, ``text_to_spec.train_text_to_spec``)."""
 
 from everyvoice_tpu_torch.train.checkpoint import (  # noqa: F401
     load_checkpoint,

@@ -1,6 +1,7 @@
 """Host-side helpers copied from everyvoice_tpu/utils/__init__.py: the text
-cleaners a checkpoint's text config names, output-file naming, and the
-filelist readers and writer of preprocessing."""
+cleaners a checkpoint's text config names, output-file naming, the
+filelist readers and writer of preprocessing, and the logger's run
+sub-directory name."""
 
 from __future__ import annotations
 
@@ -74,6 +75,22 @@ def resolve_filelist_loader(name):
     if callable(name):
         return name
     return _resolve_by_name(name, FILELIST_LOADERS, "Filelist loader")
+
+
+def get_current_time() -> str:
+    """Timestamp used for logger sub-directories."""
+    import time
+
+    return str(int(time.time()))
+
+
+def resolve_sub_dir_callable(name):
+    """The port's copy of a logger config's ``sub_dir_callable``
+    (``"everyvoice_tpu.utils.get_current_time"`` by default); a callable is
+    returned as it is."""
+    if callable(name):
+        return name
+    return _resolve_by_name(name, {"get_current_time": get_current_time}, "Sub-directory callable")
 
 
 def slugify(text: str, repl: str = "-", limit_to_n_characters: int | None = None) -> str:

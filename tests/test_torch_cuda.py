@@ -1,5 +1,6 @@
 """Tests that need a CUDA card: the port's hand-written kernels against their
-plain PyTorch versions, and the wrappers' refusals. Without a card they skip.
+plain PyTorch versions, the wrappers' refusals, and one FastSpeech2 training
+step in bfloat16 and in float32. Without a card they skip.
 
 This file imports nothing of JAX, so it also runs on a machine that has no
 JAX, without the repository's conftest (which imports it):
@@ -10,9 +11,11 @@ Tolerances: for the MRF stage, 1e-4 of max|ref| in float32 with TF32 off
 (sums in another order), 2e-2 of max|ref| in bfloat16 (conv operands
 rounded to bf16 in both versions; the order of the float32 sums still
 differs); for the log-mel, 1e-4 absolute, the JAX package's own
-kernel-vs-XLA tolerance.
+kernel-vs-XLA tolerance; for the float32 training step, losses and gradient
+norm within 1e-3 relative of the CPU's from the same parameters (TF32 off).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -141,3 +144,70 @@ def test_log_mel_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(TypeError):
         log_mel(x.half())
     assert (log_mel.launches, log_mel.fft_launches) == (before, fft_before)
+
+
+def _small_trainer(tmp_path, compute_dtype, device):
+    """A small FastSpeech2 trainer with every dropout at 0, seeded
+    parameters and a fresh optimizer, and one synthetic batch on its
+    device (mel and prior rounded to float16, as the trainer sends them)."""
+    from everyvoice_tpu_torch.config import fs2_training_config
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.parallel import compress_for_transfer
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.train.loop import FastSpeech2Trainer
+
+    conformer = {"layers": 1, "input_dim": 64, "feedforward_dim": 128, "conv_kernel_size": 3,
+                 "dropout": 0.0}
+    vp = {"n_layers": 1, "input_dim": 64, "dropout": 0.0}
+    config = fs2_training_config({
+        "contact": {"contact_name": "Card Test", "contact_email": "card@example.org"},
+        "model": {"encoder": conformer, "decoder": conformer, "max_length": 128,
+                  "variance_predictors": {"pitch": vp, "energy": vp, "duration": vp}},
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}},
+    })
+
+    class Data:
+        text_processor = TextProcessor(config["text"])
+        items: list = []
+
+    trainer = FastSpeech2Trainer(config, Data(), Data(), {}, {}, run_dir=tmp_path / compute_dtype,
+                                 compute_dtype=compute_dtype, device=device)
+    trainer.model.postnet.drop.p = 0.0
+    trainer.init_params()
+    trainer.opt_state = trainer.optimizer.init(trainer.params)
+    rng = np.random.default_rng(0)
+    b, n, t = 4, 16, 128
+    text_lengths = np.asarray([16, 11, 7, 3], np.int32)
+    mel_lengths = np.asarray([120, 80, 50, 20], np.int32)
+    batch = {"text": np.zeros((b, n), np.int32), "text_lengths": text_lengths,
+             "mel": np.zeros((b, t, 80), np.float32), "mel_lengths": mel_lengths,
+             "pitch": np.zeros((b, t), np.float32), "energy": np.zeros((b, t), np.float32),
+             "attn_prior": np.zeros((b, t, n), np.float32),
+             "speaker_id": np.zeros(b, np.int32), "language_id": np.zeros(b, np.int32)}
+    for i in range(b):
+        k, m = text_lengths[i], mel_lengths[i]
+        batch["text"][i, :k] = rng.integers(2, 28, k)
+        batch["mel"][i, :m] = rng.standard_normal((m, 80)) - 4.0
+        batch["pitch"][i, :m] = rng.standard_normal(m)
+        batch["energy"][i, :m] = rng.standard_normal(m)
+        batch["attn_prior"][i, :m, :k] = rng.uniform(0.01, 1.0, (m, k))
+    return trainer, to_device(compress_for_transfer(batch, ("mel", "attn_prior")), trainer.device)
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_fs2_training_step_on_the_card(card, tmp_path, compute_dtype):
+    trainer, batch = _small_trainer(tmp_path, compute_dtype, card)
+    before = {n: p.detach().clone() for n, p in trainer.params.items()}
+    losses = trainer.train_step(batch, 1.0)
+    torch.cuda.synchronize()
+    assert trainer.device.type == "cuda" and trainer.compute_dtype == compute_dtype
+    assert all(torch.isfinite(v) for v in losses.values()) and torch.isfinite(trainer.grad_norm)
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in trainer.params.values())
+    # AdamW decays every parameter, so every one moves.
+    assert all(not torch.equal(before[n], p) for n, p in trainer.params.items())
+    if compute_dtype == "float32":
+        cpu, cpu_batch = _small_trainer(tmp_path / "cpu", "float32", "cpu")
+        want = cpu.train_step(cpu_batch, 1.0)
+        for key, value in want.items():
+            assert losses[key].item() == pytest.approx(value.item(), rel=1e-3), key
+        assert trainer.grad_norm.item() == pytest.approx(cpu.grad_norm.item(), rel=1e-3)

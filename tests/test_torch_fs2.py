@@ -34,13 +34,15 @@ def models(tmp_path_factory):
     n_symbols = len(JaxTextProcessor(config.text).symbols)
     jmodel = JaxFastSpeech2.from_config(config, n_symbols=n_symbols)
     rng = jax.random.PRNGKey(7)
+    # With a mel, init creates the alignment encoder too: a complete tree.
     params = jax.jit(jmodel.init)(
-        {"params": rng, "dropout": rng}, jnp.zeros((1, 8), jnp.int32), jnp.asarray([8])
+        {"params": rng, "dropout": rng}, jnp.zeros((1, 8), jnp.int32), jnp.asarray([8]),
+        mel=jnp.zeros((1, 16, 80)), mel_lengths=jnp.asarray([16]),
     )
     params = jax.tree.map(np.asarray, params)
     tmodel = FastSpeech2.from_config(fs2_config(config.model_checkpoint_dump()), n_symbols)
-    state, skipped = flax_to_torch(params, tmodel)
-    assert skipped == []
+    state, absent = flax_to_torch(params, tmodel)
+    assert absent == []
     tmodel.load_state_dict(state)
     return jmodel, params, tmodel.eval(), n_symbols
 
@@ -170,11 +172,23 @@ def test_group_norm_uses_flax_epsilon_over_all_rows():
 
 
 def test_converter_reports_alignment_and_rejects_strays(models):
+    """The alignment subtree maps like the rest; a tree initialised without
+    a mel (no alignment subtree at all) keeps the model's own alignment
+    weights and reports their flax paths; a stray or missing leaf raises."""
     jmodel, params, tmodel, _ = models
     tree = {"params": dict(params["params"])}
+    alignment = tree["params"].pop("alignment")
+    state, absent = flax_to_torch(tree, tmodel)
+    assert absent == sorted(f"params/alignment/{c}/{leaf}" for c in alignment
+                            for leaf in ("bias", "kernel"))
+    assert torch.equal(state["alignment.key_in.weight"], tmodel.alignment.key_in.weight)
     tree["params"]["alignment"] = {"Dense_0": {"kernel": np.zeros((2, 2), np.float32)}}
-    _, skipped = flax_to_torch(tree, tmodel)
-    assert skipped == ["params/alignment/Dense_0/kernel"]
+    with pytest.raises(KeyError, match="alignment"):
+        flax_to_torch(tree, tmodel)
+    tree["params"]["alignment"] = {**alignment, "Dense_0": {"kernel": np.zeros((2, 2))}}
+    with pytest.raises(ValueError, match="alignment/Dense_0"):
+        flax_to_torch(tree, tmodel)
+    tree["params"]["alignment"] = alignment
     tree["params"]["bogus"] = {"kernel": np.zeros((2, 2), np.float32)}
     with pytest.raises(ValueError, match="bogus"):
         flax_to_torch(tree, tmodel)

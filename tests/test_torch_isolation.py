@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``everyvoice_tpu_torch``,
-running a small CPU synthesis and a small CPU preprocess loads nothing of
-JAX, flax, pydantic, regex, msgpack or ``everyvoice_tpu``. This file's process has imported JAX
+running a small CPU synthesis, a small CPU preprocess and two CPU training
+steps on its artifacts loads nothing of JAX, flax, pydantic, regex, msgpack,
+PyYAML, PIL or ``everyvoice_tpu``. This file's process has imported JAX
 already (tests/conftest.py), so the check runs in a fresh interpreter."""
 
 import json
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "pydantic", "regex", "msgpack", "everyvoice_tpu")
+FORBIDDEN = ("jax", "flax", "pydantic", "regex", "msgpack", "yaml", "PIL", "everyvoice_tpu")
 
 CHILD = """
 import importlib, json, pkgutil, sys, tempfile
@@ -57,9 +58,25 @@ with tempfile.TemporaryDirectory() as tmp:
         "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}, device="cpu")
     pre.preprocess(to_process=("audio", "text", "spec", "attn", "energy", "pitch"), cpus=2)
     specs = len(list((tmp / "pre" / "spec").glob("*.npy")))
+
+    from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec
+    small = {"encoder": conformer, "decoder": conformer, "max_length": 64,
+             "variance_predictors": {"pitch": vp, "energy": vp, "duration": vp}}
+    trainer = train_text_to_spec({
+        "contact": {"contact_name": "Isolation", "contact_email": "iso@example.org"},
+        "model": small, "preprocessing": {"save_dir": str(tmp / "pre")},
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}},
+        "training": {"batch_size": 1, "max_steps": 2,
+                     "training_filelist": str(tmp / "pre" / "training_filelist.psv"),
+                     "validation_filelist": str(tmp / "pre" / "validation_filelist.psv"),
+                     "vocoder_path": str(v), "logger": {"save_dir": str(tmp / "logs")}},
+    }, device="cpu", log_every=1)
+    steps = trainer.global_step
+    ckpts = sorted(p.name for p in trainer.ckpt_dir.iterdir())
 roots = sorted({name.split(".")[0] for name in sys.modules})
 print(json.dumps({"roots": roots, "written": len(written), "specs": specs,
-                  "samples": [len(r["wav"]) for r in results]}))
+                  "samples": [len(r["wav"]) for r in results], "steps": steps,
+                  "ckpts": ckpts}))
 """
 
 
@@ -74,6 +91,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert report["written"] == 4
     assert report["specs"] == 2
     assert all(n > 0 for n in report["samples"])
+    assert report["steps"] == 2 and "last.ckpt" in report["ckpts"]
     loaded = set(report["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
@@ -88,8 +106,16 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         load_vocoder_from_checkpoint,
     )
     from everyvoice_tpu_torch.preprocessor import Preprocessor
+    from everyvoice_tpu_torch.train.loop import FastSpeech2Trainer
+    from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec
 
     missing = tmp_path / "never-read.ckpt"  # the device is resolved first
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_text_to_spec({"training": {"training_filelist": str(missing)}})
+    run_dir = tmp_path / "never-run"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FastSpeech2Trainer({"training": {}}, None, None, {}, {}, run_dir=run_dir)
+    assert not run_dir.exists()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Synthesizer(missing, missing)
     with pytest.raises(RuntimeError, match="device='cpu'"):
