@@ -41,7 +41,21 @@ Phases, any failure of which exits nonzero:
    the logs and the vocoder's MRF launches; resume two steps from
    ``last.ckpt``; hold one float32 step on the card to the CPU's; synthesize
    from the trained checkpoint; time a step and split it with CUDA events;
-8. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+8. train the HiFiGAN V1 vocoder on the same corpus through
+   ``train_spec_to_wav`` at the default full width (MPD periods 2/3/5/7/11,
+   MSD 3 scales, batch 16 of 8192-sample segments, bf16, AdamW, 60 steps of
+   which the first 10 warm the generator up alone, validation at steps 30
+   and 60 through the inference forward, so ``mrf_stage`` runs there); check
+   the losses, that the mel loss falls, the two optimizer states (JAX layout,
+   the discriminator's count 50), the logs and the MRF launches; resume two
+   steps; time a step and split it with CUDA events and torch.profiler; time
+   a checkpoint write; hold one float32 GAN step on the card to the CPU's;
+   train the iSTFTNet variant 4 steps and run its inference forward; export
+   the V1 generator and serve the 1- and 16-text requests from the trained
+   FastSpeech2 and it. Every MRF stage this phase runs (the validations,
+   the iSTFT variant's forwards, the served requests) is held, on the
+   weights being trained, to the plain version in bfloat16;
+9. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -77,6 +91,11 @@ TRAIN_VAL_INTERVAL = 30
 TRAIN_WARMUP = 20      # Noam warmup, shortened so the loss falls within the run
 RESUME_STEPS = 2
 WARMUP_STEPS = 3       # steps left out of the step-time median
+VOCODER_STEPS = 60
+VOCODER_VAL_INTERVAL = 30
+VOCODER_WARMUP = 10    # generator_warmup_steps: both branches of the gate run
+VOCODER_F32_SEGMENT = 8192  # the float32 card-vs-CPU step's segment
+ISTFT_STEPS = 4
 
 
 def fail(message: str) -> None:
@@ -172,9 +191,20 @@ def check_kernel(gen) -> list:
     return rows
 
 
+def check_wav(res: dict, hop: int, what: str) -> None:
+    """A synthesized result's wav: present, finite, within [-1, 1] and
+    ``frames × hop`` samples long."""
+    import numpy as np
+
+    wav, mel = res["wav"], res["mel"]
+    if wav is None or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
+        fail(f"{what}: wav missing, not finite or outside [-1, 1]")
+    if wav.shape != (mel.shape[0] * hop,):
+        fail(f"{what}: wav of {wav.shape} for {mel.shape[0]} frames")
+
+
 def serve(synth, out_dir: Path, card: str) -> dict:
     """The main path: requests of 1, 4 and 16 texts through Synthesizer."""
-    import numpy as np
     import torch
 
     from everyvoice_tpu_torch.onchip import REQUESTS, TEXTS
@@ -200,12 +230,8 @@ def serve(synth, out_dir: Path, card: str) -> dict:
         written = synth.write_outputs(results, out_dir / f"request{i}", ("wav",))
         audio_s = 0.0
         for res in results:
-            wav, mel = res["wav"], res["mel"]
-            if wav is None or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
-                fail(f"request {i}: wav missing, not finite or outside [-1, 1]")
-            if wav.shape != (mel.shape[0] * hop,):
-                fail(f"request {i}: wav of {wav.shape} for {mel.shape[0]} frames")
-            audio_s += wav.shape[0] / sr
+            check_wav(res, hop, f"request {i}")
+            audio_s += res["wav"].shape[0] / sr
         if len(written) != len(texts):
             fail(f"request {i}: wrote {len(written)} wavs for {len(texts)} texts")
         row = {"texts": len(texts), "chunks": sum(len(r["tokens"]) for r in results),
@@ -226,17 +252,14 @@ def serve(synth, out_dir: Path, card: str) -> dict:
             "requests": timings}
 
 
-def check_served_stages(synth) -> list:
-    """Each MRF stage the requests run, at the batch the request gives it,
-    held to the plain version on the same input (bf16, 2e-2 of max|ref|);
-    one row per stage shape, with the kernel launches one stage issued."""
+def checked_mrf_stages(rows: dict):
+    """An ``mrf_stage`` that holds every call to the plain version on the
+    same input (bf16: 2e-2 of max|ref|) and records, per (B, T, C), the
+    calls, the largest error, the tolerance and the kernel launches one
+    stage issued."""
     import torch
 
-    from everyvoice_tpu_torch.models.hifigan import model as hifigan
-    from everyvoice_tpu_torch.onchip import REQUESTS
     from everyvoice_tpu_torch.ops.mrf import mrf_stage, mrf_stage_reference
-
-    seen = {}
 
     def checked(x, w, b, kernel_sizes, dilation_sizes, slope):
         issued = mrf_stage.kernel_launches
@@ -247,9 +270,9 @@ def check_served_stages(synth) -> list:
         tol = 2e-2 * ref.abs().max().item()
         batch, t, c = x.shape
         if not (err <= tol and torch.isfinite(got).all()):
-            fail(f"mrf_stage disagrees with its plain version on a served batch "
-                 f"(B={batch}, T={t}, C={c}, {x.dtype}): max diff {err} > {tol}")
-        row = seen.setdefault((batch, t, c), {
+            fail(f"mrf_stage disagrees with its plain version (B={batch}, T={t}, C={c}, "
+                 f"{x.dtype}): max diff {err} > {tol}")
+        row = rows.setdefault((batch, t, c), {
             "B": batch, "T": t, "C": c, "dtype": str(x.dtype).replace("torch.", ""),
             "design": DESIGN[str(x.dtype)], "kernel_launches": issued, "calls": 0,
             "max_abs_err": 0.0, "tol": float("inf")})
@@ -258,7 +281,19 @@ def check_served_stages(synth) -> list:
         row["tol"] = min(row["tol"], tol)
         return got
 
-    hifigan.mrf_stage = checked
+    return checked
+
+
+def check_served_stages(synth) -> list:
+    """Each MRF stage the requests run, at the batch the request gives it,
+    held to the plain version on the same input; one row per stage shape,
+    with the kernel launches one stage issued."""
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.onchip import REQUESTS
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+
+    seen: dict = {}
+    hifigan.mrf_stage = checked_mrf_stages(seen)
     try:
         for texts in REQUESTS:
             synth.synthesize(texts)
@@ -554,10 +589,12 @@ def training_config(root: Path, cfg: dict, voc_path: Path, version: str, **train
     """The corpus config with a training section: FastSpeech2's default
     model and Noam AdamW (warmup shortened), batch 16, the seeded vocoder
     for validation audio."""
+    from everyvoice_tpu_torch.onchip import CONTACT
+
     save = Path(cfg["preprocessing"]["save_dir"])
     return {
         **cfg,
-        "contact": {"contact_name": "Chip Smoke", "contact_email": "smoke@example.org"},
+        "contact": CONTACT,
         "training": {
             "batch_size": 16, "max_steps": TRAIN_STEPS, "val_check_interval": TRAIN_VAL_INTERVAL,
             "optimizer": {"learning_rate": 1e-3, "weight_decay": 1e-6, "betas": [0.9, 0.999],
@@ -822,8 +859,6 @@ def train_phase(root: Path, cfg: dict, voc_path: Path, card: str) -> dict:
 def synthesize_trained(ckpt_path: Path, voc_path: Path, out_dir: Path) -> dict:
     """The 1-text request from the trained checkpoint, on the card, with the
     serving phase's checks."""
-    import numpy as np
-
     from everyvoice_tpu_torch.models.fs2.synthesize import Synthesizer
     from everyvoice_tpu_torch.onchip import TEXTS
 
@@ -831,16 +866,351 @@ def synthesize_trained(ckpt_path: Path, voc_path: Path, out_dir: Path) -> dict:
     if synth.device.type != "cuda":
         fail(f"Synthesizer resolved to {synth.device}")
     [res] = synth.synthesize(TEXTS[:1])
-    hop = synth._samples_per_frame()
     wav, mel = res["wav"], res["mel"]
-    if wav is None or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
-        fail("synthesis from the trained checkpoint: wav missing, not finite or outside [-1, 1]")
-    if wav.shape != (mel.shape[0] * hop,) or not synth.write_outputs([res], out_dir, ("wav",)):
-        fail(f"synthesis from the trained checkpoint: wav of {wav.shape} for {mel.shape[0]} frames")
+    check_wav(res, synth._samples_per_frame(), "synthesis from the trained checkpoint")
+    if not synth.write_outputs([res], out_dir, ("wav",)):
+        fail("synthesis from the trained checkpoint wrote no wav")
     row = {"frames": int(mel.shape[0]), "samples": int(wav.shape[0]),
            "durations": [int(d) for d in res["durations"][0]]}
     print("trained synthesis " + json.dumps(row), flush=True)
     return row
+
+
+def check_vocoder_run(trainer, expect_steps: list, disc_updates: int, expect_tagged: int) -> list:
+    """The vocoder run's files: metrics (every logged loss finite, the
+    steps ``expect_steps``), hparams, an event file, last.ckpt and the
+    tagged checkpoints, each with both optimizer states in the JAX layout
+    (AdamW's moments keyed like the parameters' trees; the generator's
+    count the step, the discriminators' ``disc_updates`` at last.ckpt).
+    Returns the logged training records."""
+    import numpy as np
+
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    run = trainer.run_dir
+    for name in ("metrics.jsonl", "hparams.yaml"):
+        if not (run / name).is_file():
+            fail(f"the vocoder run wrote no {name}")
+    if not list(run.glob("events.out.tfevents.*")):
+        fail("the vocoder run wrote no event file")
+    tagged = sorted(trainer.ckpt_dir.glob("epoch=*-step=*-loss=*.ckpt"))
+    if not (trainer.ckpt_dir / "last.ckpt").is_file() or len(tagged) != expect_tagged:
+        fail(f"vocoder checkpoints: {sorted(p.name for p in trainer.ckpt_dir.iterdir())}")
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            return [x for k, v in sorted(tree.items()) for x in leaves(v, prefix + (k,))]
+        return [(prefix, np.shape(tree))]
+
+    ckpt = load_checkpoint(trainer.ckpt_dir / "last.ckpt")
+    params, opt = ckpt["state_dict"], ckpt["optimizer_states"]
+    if sorted(params) != ["discriminators", "generator"] or sorted(opt) != ["disc", "gen"]:
+        fail(f"vocoder checkpoint trees: {sorted(params)}, {sorted(opt)}")
+    for key, tree, count in (("gen", params["generator"], ckpt["global_step"]),
+                             ("disc", params["discriminators"], disc_updates)):
+        state = opt[key]
+        if (sorted(state) != ["0", "1", "2"] or leaves(state["0"]["mu"]) != leaves(tree)
+                or leaves(state["0"]["nu"]) != leaves(tree) or int(state["0"]["count"]) != count):
+            fail(f"the {key} optimizer state is not in the JAX package's layout or counted "
+                 f"{int(state['0']['count'])} updates, not {count}")
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    training = [r for r in records if "training/gen/total" in r]
+    values = [v for r in records for k, v in r.items() if k.startswith(("training/", "validation/"))]
+    if [r["step"] for r in training] != expect_steps or not np.isfinite(values).all():
+        fail(f"vocoder run logged steps {[r['step'] for r in training]}, "
+             f"finite: {np.isfinite(values).all()}")
+    return training
+
+
+def split_gan_step(trainer, batch) -> dict:
+    """CUDA-event times of one bf16 GAN step's parts, on a training batch:
+    the generator's forward; the discriminators' forward and backward; the
+    generator's mel loss, discriminator passes and backward; the two
+    optimizer updates; and two whole steps on the host clock beside them.
+    Kernel launches, device busy time and traced wall of a whole step,
+    from torch.profiler."""
+    import torch
+
+    from everyvoice_tpu_torch.train.loop import _decompress
+    from everyvoice_tpu_torch.utils.precision import no_tf32
+
+    whole_ms = []
+    for _ in range(3):  # the first warms; whole steps on the host clock beside the split
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, True)
+        torch.cuda.synchronize()
+        whole_ms.append(1e3 * (time.perf_counter() - t0))
+    plain = _decompress(batch)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    with no_tf32():
+        events[0].record()
+        fake = trainer.generator.train_forward(plain["mel"])
+        events[1].record()
+        _, d_grads = trainer.discriminator_grads(plain["audio"], fake, True)
+        events[2].record()
+        trainer.update_discriminators(d_grads)
+        events[3].record()
+        _, g_grads = trainer.generator_grads(plain["audio"], fake, True)
+        events[4].record()
+        trainer.update_generator(g_grads)
+        events[5].record()
+    torch.cuda.synchronize()
+    step_trace = trace(lambda: trainer.train_step(batch, True))
+    return {
+        "generator_forward_ms": events[0].elapsed_time(events[1]),
+        "discriminator_grads_ms": events[1].elapsed_time(events[2]),
+        "generator_grads_ms": events[3].elapsed_time(events[4]),
+        "optimizers_ms": events[2].elapsed_time(events[3]) + events[4].elapsed_time(events[5]),
+        "whole_steps_after_run_ms": whole_ms[1:],
+        "kernels_per_step": step_trace["kernels"], "traced_busy_ms": step_trace["busy_ms"],
+        "traced_step_ms": step_trace["wall_ms"],
+    }
+
+
+def vocoder_float32_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> dict:
+    """One float32 GAN step from the trained checkpoint's parameters, on
+    one batch of 2 segments, on the card and on the CPU: the losses and
+    both gradient norms within 1e-3 relative."""
+    from everyvoice_tpu_torch.config import hifigan_training_config
+    from everyvoice_tpu_torch.dataloader import HiFiGANDataset
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.parallel import compress_for_transfer
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+    from everyvoice_tpu_torch.train.loop import HiFiGANTrainer
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    config = hifigan_training_config(config)
+    ckpt = load_checkpoint(ckpt_path)
+    ds = HiFiGANDataset(generic_psv_filelist_reader(config["training"]["training_filelist"]), config)
+    host = next(ds.segment_batches(2, VOCODER_F32_SEGMENT, seed=0))
+    host.pop("basenames")
+    host = compress_for_transfer(host, ("mel",))
+    result, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        trainer = HiFiGANTrainer(config, ds, ds, run_dir=run_root / f"voc-f32-{device}",
+                                 compute_dtype="float32", device=device)
+        trainer.load_params(ckpt["state_dict"])
+        trainer.gen_opt_state = trainer.gen_opt.init(trainer.gen_params)
+        trainer.disc_opt_state = trainer.disc_opt.init(trainer.disc_params)
+        t0 = time.perf_counter()
+        losses = trainer.train_step(to_device(host, trainer.device), True)
+        result[device] = {**{k: v.item() for k, v in losses.items()},
+                          "grad_norm": trainer.grad_norm.item(),
+                          "disc_grad_norm": trainer.disc_grad_norm.item()}
+        seconds[device] = time.perf_counter() - t0
+    diffs = {k: abs(result["cuda"][k] - v) / max(abs(v), 1e-12) for k, v in result["cpu"].items()}
+    row = {"rows": 2, "segment": VOCODER_F32_SEGMENT, "card": result["cuda"], "cpu": result["cpu"],
+           "cpu_step_s": seconds["cpu"], "max_rel_diff": max(diffs.values())}
+    print("vocoder float32 card vs cpu " + json.dumps(row), flush=True)
+    if row["max_rel_diff"] > 1e-3:
+        fail(f"the card's float32 GAN step disagrees with the CPU's: {diffs}")
+    return row
+
+
+def istft_phase(root: Path, cfg: dict) -> dict:
+    """The iSTFTNet variant (upsample 8·8, 512 channels, an inverse STFT of
+    hop 4) trained ISTFT_STEPS steps through ``train_spec_to_wav``; then its
+    inference forward on the validation segments, the wavs frames × 256
+    samples long. Every MRF stage of both, its validation's included, is
+    held to the plain version."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.onchip import ISTFT_MODEL, vocoder_config
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.train.spec_to_wav import train_spec_to_wav
+
+    config = vocoder_config(cfg, root / "logs", "istft", model=ISTFT_MODEL,
+                            max_steps=ISTFT_STEPS, save_top_k_ckpts=1)
+    rows: dict = {}
+    hifigan.mrf_stage = checked_mrf_stages(rows)
+    try:
+        mrf_stage.launches = 0
+        trainer = train_spec_to_wav(config, log_every=1)
+        launches = mrf_stage.launches
+        check_vocoder_run(trainer, list(range(1, ISTFT_STEPS + 1)), ISTFT_STEPS, 1)
+        generator = trainer.generator
+        if (generator.istft_hop, generator.istft_n_fft) != (4, 16):
+            fail(f"iSTFT head of hop {generator.istft_hop}, n_fft {generator.istft_n_fft}")
+        frames = samples = 0
+        for batch in trainer.val_dataset.segment_batches(16, trainer.segment_size, shuffle=False):
+            mel = to_device({"mel": batch["mel"]}, trainer.device)["mel"]
+            wav = generator(mel).float().cpu().numpy()
+            if wav.shape != (mel.shape[0], mel.shape[1] * 256) or not np.isfinite(wav).all():
+                fail(f"iSTFT wav of {wav.shape} for mel {tuple(mel.shape)}")
+            frames, samples = mel.shape[1], wav.shape[1]
+    finally:
+        hifigan.mrf_stage = mrf_stage
+    torch.cuda.synchronize()
+    row = {"steps": ISTFT_STEPS, "mrf_launches": launches, "frames": frames, "samples": samples,
+           "stages": [rows[k] for k in sorted(rows)]}
+    print("istft " + json.dumps(row), flush=True)
+    return {"launches": launches, "stages": row["stages"]}
+
+
+def serve_with_trained_vocoder(fs2_ckpt: Path, voc_ckpt: Path, out_dir: Path) -> dict:
+    """The 1- and 16-text requests through ``Synthesizer`` from the trained
+    FastSpeech2 and the exported trained vocoder, with the serving checks
+    and every MRF stage held to the plain version (wall times include
+    those checks)."""
+    from everyvoice_tpu_torch.models.fs2.synthesize import Synthesizer
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.onchip import REQUESTS
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+
+    synth = Synthesizer(fs2_ckpt, voc_ckpt)
+    if synth.device.type != "cuda" or synth.vocoder is None:
+        fail(f"Synthesizer resolved to {synth.device}")
+    hop = synth._samples_per_frame()
+    mrf_stage.launches = 0
+    rows, seen = [], {}
+    hifigan.mrf_stage = checked_mrf_stages(seen)
+    try:
+        for texts in (REQUESTS[0], REQUESTS[2]):
+            t0 = time.perf_counter()
+            results = synth.synthesize(texts)
+            wall = time.perf_counter() - t0
+            for res in results:
+                check_wav(res, hop, "trained vocoder")
+            if len(synth.write_outputs(results, out_dir, ("wav",))) != len(texts):
+                fail("trained vocoder: a wav was not written")
+            rows.append({"texts": len(texts), "wall_s": wall,
+                         "samples": sum(r["wav"].shape[0] for r in results)})
+    finally:
+        hifigan.mrf_stage = mrf_stage
+    launches = mrf_stage.launches
+    if launches == 0:
+        fail("serving from the trained vocoder launched no mrf_stage")
+    stages = [seen[k] for k in sorted(seen)]
+    row = {"requests": rows, "mrf_launches": launches, "stages": stages}
+    print("trained vocoder serving " + json.dumps(row), flush=True)
+    return {"launches": launches, "stages": stages, "row": row}
+
+
+def vocoder_phase(root: Path, cfg: dict, fs2_ckpt: Path, card: str) -> dict:
+    """The main path's vocoder slice: ``train_spec_to_wav`` on the
+    preprocessed corpus at full width, on the card; a resume; the step's
+    split; a float32 step held to the CPU's; the iSTFT variant; and serving
+    from the exported trained generator."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.models.fs2.synthesize import export_generator
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
+    from everyvoice_tpu_torch.onchip import vocoder_config
+    from everyvoice_tpu_torch.parallel import compress_for_transfer
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.train import loop
+    from everyvoice_tpu_torch.train.checkpoint import save_checkpoint
+    from everyvoice_tpu_torch.train.spec_to_wav import train_spec_to_wav
+
+    config = vocoder_config(cfg, root / "logs", "vocoder", max_steps=VOCODER_STEPS,
+                            val_check_interval=VOCODER_VAL_INTERVAL,
+                            generator_warmup_steps=VOCODER_WARMUP, save_top_k_ckpts=1)
+    t = config["training"]
+    print("vocoder overrides " + json.dumps({
+        k: t[k] for k in ("batch_size", "max_steps", "val_check_interval",
+                          "generator_warmup_steps", "save_top_k_ckpts", "logger")}), flush=True)
+    forwards = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda module, *_: forwards.append(1) if isinstance(module, HiFiGANGenerator) else None)
+    step_s = []
+    plain_step = loop.HiFiGANTrainer.train_step
+
+    def timed_step(self, batch, gan_on):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_step(self, batch, gan_on)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    loop.HiFiGANTrainer.train_step = timed_step
+    # Every validation forward's MRF stages, on the weights being trained,
+    # held to the plain version on the same input.
+    val_stages: dict = {}
+    hifigan.mrf_stage = checked_mrf_stages(val_stages)
+    mrf_stage.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        trainer = train_spec_to_wav(config, log_every=1)  # the card, 'auto' precision
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches, val_forwards = mrf_stage.launches, len(forwards)
+        resume = vocoder_config(cfg, root / "logs", "vocoder-resume",
+                                max_steps=VOCODER_STEPS + RESUME_STEPS,
+                                val_check_interval=VOCODER_VAL_INTERVAL,
+                                generator_warmup_steps=VOCODER_WARMUP, save_top_k_ckpts=1,
+                                finetune_checkpoint=str(trainer.ckpt_dir / "last.ckpt"))
+        resumed = train_spec_to_wav(resume, log_every=1)
+    finally:
+        loop.HiFiGANTrainer.train_step = plain_step
+        hifigan.mrf_stage = mrf_stage
+        hook.remove()
+    training_launches = mrf_stage.launches
+    val_rows = [val_stages[k] for k in sorted(val_stages)]
+    for stage in val_rows:
+        print("vocoder validation stage " + json.dumps(stage), flush=True)
+    if sum(r["calls"] for r in val_rows) != training_launches:
+        fail(f"{training_launches} mrf_stage launches, "
+             f"{sum(r['calls'] for r in val_rows)} held to the plain version")
+    if trainer.device.type != "cuda" or trainer.compute_dtype != "bfloat16":
+        fail(f"the vocoder trainer resolved to {trainer.compute_dtype} on {trainer.device}")
+    if launches == 0 or launches != 4 * val_forwards:
+        fail(f"mrf_stage launched {launches} times for {val_forwards} validation forwards")
+    records = check_vocoder_run(trainer, list(range(1, VOCODER_STEPS + 1)),
+                                VOCODER_STEPS - VOCODER_WARMUP, 1)
+    mels = [r["training/gen/mel"] for r in records]
+    first, last = float(np.mean(mels[:10])), float(np.mean(mels[-10:]))
+    if not last < first:
+        fail(f"the vocoder's mel loss did not fall: first 10 steps {first}, last 10 {last}")
+    check_vocoder_run(resumed, list(range(VOCODER_STEPS + 1, VOCODER_STEPS + RESUME_STEPS + 1)),
+                      VOCODER_STEPS - VOCODER_WARMUP + RESUME_STEPS, 1)
+    if resumed.resumed != "full":
+        fail(f"vocoder resume: mode {resumed.resumed}")
+
+    host = next(trainer.dataset.segment_batches(t["batch_size"], trainer.segment_size, seed=0))
+    host.pop("basenames")
+    split = split_gan_step(trainer, to_device(compress_for_transfer(host, ("mel",)), trainer.device))
+    t0 = time.perf_counter()
+    params, opt = trainer.host_state()
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    written = save_checkpoint(root / "write-timing.ckpt", "HiFiGAN", {}, params, opt_state=opt)
+    write_s = time.perf_counter() - t0
+    ckpt_bytes = written.stat().st_size
+    written.unlink()
+    del params, opt
+    f32 = vocoder_float32_card_vs_cpu(config, trainer.ckpt_dir / "last.ckpt", root / "f32")
+
+    istft = istft_phase(root, cfg)
+    exported = export_generator(trainer.ckpt_dir / "last.ckpt", root / "vocoder-generator.ckpt")
+    served = serve_with_trained_vocoder(fs2_ckpt, exported, root / "trained-vocoder")
+
+    median_ms = 1e3 * float(np.median(step_s[WARMUP_STEPS:VOCODER_STEPS]))
+    steps_per_s = 1e3 / median_ms
+    row = {
+        "steps": len(records), "resumed_steps": RESUME_STEPS, "wall_s": wall,
+        "median_step_ms": median_ms,
+        "median_warmup_step_ms": 1e3 * float(np.median(step_s[WARMUP_STEPS:VOCODER_WARMUP])),
+        "median_gan_step_ms": 1e3 * float(np.median(step_s[VOCODER_WARMUP:VOCODER_STEPS])),
+        "steps_per_s": steps_per_s,
+        "audio_s_per_s": steps_per_s * t["batch_size"] * trainer.segment_size / SR,
+        "peak_memory_gb": peak / 1e9, "gen_mel_first10": first, "gen_mel_last10": last,
+        **split, "host_state_s": host_s, "checkpoint_write_s": write_s,
+        "checkpoint_gb": ckpt_bytes / 1e9, "validation_forwards": val_forwards,
+        "mrf_launches": launches, "float32_max_rel_diff": f32["max_rel_diff"],
+        "float32_cpu_step_s": f32["cpu_step_s"], "card": card,
+    }
+    print("vocoder train " + json.dumps(row), flush=True)
+    return {"launches": training_launches + istft["launches"], "serving_launches": served["launches"],
+            "stages": val_rows + istft["stages"] + served["stages"], "row": row}
 
 
 def timed_build(name: str) -> tuple:
@@ -896,7 +1266,11 @@ def main() -> int:
         features_card_vs_cpu(prep["cfg"], batches[max(batches)])
 
         trained = train_phase(tmp, prep["cfg"], voc_path, card)
-        synthesize_trained(trained["trainer"].ckpt_dir / "last.ckpt", voc_path, tmp / "trained")
+        training_launches = trained["launches"]
+        fs2_ckpt = trained["trainer"].ckpt_dir / "last.ckpt"
+        synthesize_trained(fs2_ckpt, voc_path, tmp / "trained")
+        del trained
+        vocoder = vocoder_phase(tmp, prep["cfg"], fs2_ckpt, card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -904,12 +1278,15 @@ def main() -> int:
         "route": "cuda",
         "source": "everyvoice_tpu_torch/ops/csrc/mrf.cu",
         "replaces": "everyvoice_tpu/ops/mrf_pallas.py:137",
-        "launches": served["launches"] + trained["launches"],
+        "launches": (served["launches"] + training_launches + vocoder["launches"]
+                     + vocoder["serving_launches"]),
         "serving_launches": served["launches"],
-        "training_launches": trained["launches"],
+        "training_launches": training_launches,
+        "vocoder_training_launches": vocoder["launches"],
+        "trained_vocoder_serving_launches": vocoder["serving_launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
-        "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages),
+        "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + vocoder["stages"]),
         "ms": sum(r["kernel_ms"] for r in bf16),
         "plain_ms": sum(r["plain_ms"] for r in bf16),
         "bound_ms": sum(r["bound_ms"] for r in bf16),

@@ -6,15 +6,17 @@ The JAX package validates these dicts with pydantic models
 no pydantic, so it fills in the same defaults here and reads plain dicts.
 The defaults cover the model section of each model's config, the audio and
 text sections they share, the preprocessing section with its datasets, and
-FastSpeech2's training section with its optimizer and logger
-(``fs2_training_config``, whose ``model_checkpoint_dump`` is the JAX
-package's ``FastSpeech2Config.model_checkpoint_dump``).
+the training sections of FastSpeech2 and HiFiGAN with their optimizer and
+logger (``fs2_training_config`` and ``hifigan_training_config``, whose
+``model_checkpoint_dump`` is the JAX package's
+``FastSpeech2Config``/``HiFiGANConfig.model_checkpoint_dump``).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 
 CONFORMER = {
     "layers": 4, "heads": 2, "input_dim": 256, "feedforward_dim": 1024,
@@ -182,9 +184,9 @@ LOGGER = {
     "sub_dir_callable": "everyvoice_tpu.utils.get_current_time",
     "version": "base",
 }
-# BaseTrainingConfig (config/shared_types.py:262-302) with FastSpeech2's
-# fields (models/fs2/config.py:106-129), in the JAX package's field order.
-FS2_TRAINING = {
+# BaseTrainingConfig (config/shared_types.py:262-302), in the JAX package's
+# field order.
+BASE_TRAINING = {
     "batch_size": 16,
     "save_top_k_ckpts": 5,
     "ckpt_steps": None,
@@ -200,6 +202,10 @@ FS2_TRAINING = {
     "logger": LOGGER,
     "val_data_workers": 0,
     "train_data_workers": 4,
+}
+# With FastSpeech2's fields (models/fs2/config.py:106-129).
+FS2_TRAINING = {
+    **BASE_TRAINING,
     "use_weighted_sampler": False,
     "optimizer": FS2_OPTIMIZER,
     "vocoder_path": None,
@@ -211,6 +217,16 @@ FS2_TRAINING = {
     "attn_ctc_loss_weight": 0.1,
     "attn_bin_loss_weight": 0.1,
     "attn_bin_loss_warmup_epochs": 100,
+}
+# With HiFiGAN's fields (models/hifigan/config.py:78-96).
+HIFIGAN_TRAINING = {
+    **BASE_TRAINING,
+    "generator_warmup_steps": 0,
+    "gan_type": "original",
+    "optimizer": OPTIMIZERS["adamw"],
+    "wgan_clip_value": 0.01,
+    "use_weighted_sampler": False,
+    "finetune": False,
 }
 # Path-typed fields: the JAX package's checkpoint dump drops a Path value
 # (a None stays). (section keys, field) pairs; "*" is every dataset.
@@ -226,13 +242,14 @@ PATH_FIELDS = (
 )
 
 
-def optimizer_config(given: dict | None) -> dict:
-    """A FastSpeech2 optimizer section: FastSpeech2's Noam defaults when none
-    is given, else the given fields over the defaults of the optimizer it
-    names (a given section is validated from its class's defaults)."""
+def optimizer_config(given: dict | None, default: dict = FS2_OPTIMIZER) -> dict:
+    """An optimizer section: ``default`` (FastSpeech2's Noam) when none is
+    given, else the given fields over the defaults of the optimizer it names,
+    ``default``'s by default (a given section is validated from its class's
+    defaults)."""
     if given is None:
-        return copy.deepcopy(FS2_OPTIMIZER)
-    name = given.get("name", "noam")
+        return copy.deepcopy(default)
+    name = given.get("name", default["name"])
     if name not in OPTIMIZERS:
         raise ValueError(f"Unknown optimizer {name!r}: expected one of {sorted(OPTIMIZERS)}")
     return merge_defaults(OPTIMIZERS[name], given)
@@ -259,6 +276,39 @@ def fs2_training_config(config: dict) -> dict:
     out["preprocessing"] = {"VERSION": "1.0", "path_to_audio_config_file": None,
                             **pre["preprocessing"]}
     out["text"] = pre["text"]
+    return out
+
+
+def hifigan_training_config(config: dict) -> dict:
+    """A HiFiGAN training config with every default of the JAX package's
+    ``HiFiGANConfig`` filled in: model, training (AdamW, logger) and
+    preprocessing (audio, datasets). Raises where that validator does: no
+    ``contact``, a dataset without permission, or upsampling rates whose
+    product is not the hop (or, with the iSTFT head, does not divide it)."""
+    if "contact" not in config:
+        raise ValueError(
+            "EveryVoice models require contact information; please add a "
+            "'contact' section (contact_name, contact_email)."
+        )
+    pre = preprocessing_config(config)["preprocessing"]
+    training = merge_defaults(HIFIGAN_TRAINING, config.get("training"))
+    training["optimizer"] = optimizer_config((config.get("training") or {}).get("optimizer"),
+                                             OPTIMIZERS["adamw"])
+    out = {"VERSION": "1.0", **config}
+    for key in ("model", "training", "preprocessing"):
+        out.setdefault(f"path_to_{key}_config_file", None)
+    out.pop("text", None)
+    out["model"] = merge_defaults(HIFIGAN_MODEL, config.get("model"))
+    out["training"] = training
+    out["preprocessing"] = {"VERSION": "1.0", "path_to_audio_config_file": None, **pre}
+    product = math.prod(out["model"]["upsample_rates"])
+    hop = pre["audio"]["fft_hop_size"]
+    if out["model"]["istft_layer"]:
+        if hop % product != 0:
+            raise ValueError(f"With istft_layer, prod(upsample_rates)={product} must "
+                             f"divide fft_hop_size={hop}.")
+    elif product != hop:
+        raise ValueError(f"prod(upsample_rates)={product} must equal fft_hop_size={hop}.")
     return out
 
 

@@ -11,6 +11,7 @@ the tables below pair each leaf with a torch parameter and a layout change:
 - Conv kernel (k, in/groups, out) ↔ Conv1d weight (out, in/groups, k);
 - ConvTranspose kernel (k, in, out) ↔ torch's (in, out, k) with the taps
   reversed (flax does not flip the kernel; torch's transposed conv does);
+- the MPD's 2-D Conv kernel (k, 1, in, out) ↔ Conv2d weight (out, in, k, 1);
 - attention query/key/value kernels (dim, heads, head_dim) and biases
   (heads, head_dim) ↔ Linear (heads·head_dim, dim) and (heads·head_dim,);
   the out kernel (heads, head_dim, dim) ↔ Linear (dim, heads·head_dim).
@@ -24,6 +25,14 @@ weights in place, and ``flax_to_torch`` reports the flax paths it lacked.
 ``torch_to_flax`` is the inverse; it lets a machine without JAX write
 checkpoints in the JAX package's layout. Both also map an optimizer's
 moments, which have the parameters' shapes.
+
+HiFiGAN's generator maps to ``{"params": ...}`` (``ResBlock1_j`` or
+``ResBlock2_j``; the post conv or the iSTFT head as ``Conv_1``), its
+``HiFiGANDiscriminators`` to ``{"mpd": {"params": ...}, "msd": {"params":
+...}}`` (weight-normed ``PeriodDiscriminator_i`` and ``ScaleDiscriminator_i``
+convs, and ``SpectralNormConv_u``'s plain kernel and bias), and
+``hifigan_tree`` joins the two into the JAX trainer's ``{"generator": ...,
+"discriminators": ...}`` checkpoint tree.
 """
 
 from __future__ import annotations
@@ -32,7 +41,13 @@ import numpy as np
 import torch
 
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
-from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
+from everyvoice_tpu_torch.models.hifigan.model import (
+    HiFiGANDiscriminators,
+    HiFiGANGenerator,
+    MultiPeriodDiscriminator,
+    MultiScaleDiscriminator,
+    SpectralNormConv1d,
+)
 from everyvoice_tpu_torch.models.layers import ConformerStack, VariancePredictor
 
 OPTIONAL_SUBTREES = ("alignment",)
@@ -46,6 +61,8 @@ def _to_torch(arr: np.ndarray, kind: str) -> np.ndarray:
         return arr.transpose(2, 1, 0)
     if kind == "conv_transpose":
         return arr.transpose(1, 2, 0)[..., ::-1]
+    if kind == "conv2d":
+        return arr.transpose(3, 2, 0, 1)
     if kind == "mha_in":
         return arr.reshape(arr.shape[0], -1).T
     if kind == "mha_in_bias":
@@ -62,6 +79,8 @@ def _to_flax(arr: np.ndarray, kind: str, heads: int) -> np.ndarray:
         return arr.transpose(2, 1, 0)
     if kind == "conv_transpose":
         return arr[..., ::-1].transpose(2, 0, 1)
+    if kind == "conv2d":
+        return arr.transpose(2, 3, 1, 0)
     if kind == "mha_in":
         return arr.T.reshape(arr.shape[1], heads, -1)
     if kind == "mha_in_bias":
@@ -170,14 +189,39 @@ def _generator_table(model: HiFiGANGenerator) -> list:
         out += _wn(p + (name,), p + (f"WeightNorm_{1 + i}", f"{name}/kernel/scale"),
                    f"ups.{i}", "conv_transpose")
     for j, chain in enumerate(model.resblocks):
-        block = p + (f"ResBlock1_{j}",)
-        for u in range(len(chain)):
+        block = p + (f"ResBlock{model.resblock}_{j}",)
+        for u in range(len(chain.convs)):
             out += _wn(block + (f"Conv_{u}",),
                        block + (f"WeightNorm_{u}", f"Conv_{u}/kernel/scale"),
-                       f"resblocks.{j}.{u}")
+                       f"resblocks.{j}.convs.{u}")
     out += _wn(p + ("Conv_1",), p + (f"WeightNorm_{1 + n_stages}", "Conv_1/kernel/scale"),
                "conv_post")
     return out
+
+
+def _disc_convs(fpath, tkey, disc, kind="conv") -> list:
+    """A discriminator's convs in flax's order (``convs``, then
+    ``conv_post``): weight-normed ``Conv_u``, or ``SpectralNormConv_u``."""
+    out = []
+    for u, conv in enumerate([*disc.convs, disc.conv_post]):
+        t = f"{tkey}.convs.{u}" if u < len(disc.convs) else f"{tkey}.conv_post"
+        if isinstance(conv, SpectralNormConv1d):
+            out += _conv(fpath + (f"SpectralNormConv_{u}",), t)
+        else:
+            out += _wn(fpath + (f"Conv_{u}",), fpath + (f"WeightNorm_{u}", f"Conv_{u}/kernel/scale"),
+                       t, kind)
+    return out
+
+
+def _mpd_table(model: MultiPeriodDiscriminator, p=("params",), t="") -> list:
+    return [row for i, disc in enumerate(model.discriminators)
+            for row in _disc_convs(p + (f"PeriodDiscriminator_{i}",),
+                                   f"{t}discriminators.{i}", disc, "conv2d")]
+
+
+def _msd_table(model: MultiScaleDiscriminator, p=("params",), t="") -> list:
+    return [row for i, disc in enumerate(model.discriminators)
+            for row in _disc_convs(p + (f"ScaleDiscriminator_{i}",), f"{t}discriminators.{i}", disc)]
 
 
 def _table(model) -> list:
@@ -185,6 +229,13 @@ def _table(model) -> list:
         return _fs2_table(model)
     if isinstance(model, HiFiGANGenerator):
         return _generator_table(model)
+    if isinstance(model, MultiPeriodDiscriminator):
+        return _mpd_table(model)
+    if isinstance(model, MultiScaleDiscriminator):
+        return _msd_table(model)
+    if isinstance(model, HiFiGANDiscriminators):
+        return (_mpd_table(model.mpd, ("mpd", "params"), "mpd.")
+                + _msd_table(model.msd, ("msd", "params"), "msd."))
     raise TypeError(f"no flax layout is known for {type(model).__name__}")
 
 
@@ -239,9 +290,21 @@ def torch_to_flax(state_dict: dict, model) -> dict:
         raise ValueError(f"torch parameters with no flax leaf: {missing}")
     for fpath, tkey, kind in table:
         h = next((n for prefix, n in heads.items() if tkey.startswith(prefix)), 1)
-        arr = state_dict[tkey].detach().float().cpu().numpy()
+        # A copy: a live CPU parameter must not change under a checkpoint
+        # that a writer thread is still serializing.
+        arr = state_dict[tkey].detach().to("cpu", torch.float32, copy=True).numpy()
         node = tree
         for key in fpath[:-1]:
             node = node.setdefault(key, {})
         node[fpath[-1]] = np.ascontiguousarray(_to_flax(arr, kind, h))
     return tree
+
+
+def hifigan_tree(generator_state: dict, disc_state: dict, generator: HiFiGANGenerator,
+                 discriminators: HiFiGANDiscriminators) -> dict:
+    """The JAX HiFiGAN trainer's checkpoint tree ``{"generator": {"params":
+    ...}, "discriminators": {"mpd": {"params": ...}, "msd": {"params":
+    ...}}}`` from the two modules' state dicts (or moments)."""
+    return {"generator": torch_to_flax(generator_state, generator),
+            "discriminators": torch_to_flax(disc_state, discriminators)}
+

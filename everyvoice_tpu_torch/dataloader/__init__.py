@@ -1,11 +1,13 @@
-"""Host-side data pipeline of FastSpeech2 training (counterpart of
-everyvoice_tpu/dataloader/__init__.py).
+"""Host-side data pipelines of FastSpeech2 and HiFiGAN training (counterpart
+of everyvoice_tpu/dataloader/__init__.py).
 
-Batches are padded numpy arrays of one shape for the whole run: text to the
-corpus's longest token sequence, frames to the model's ``max_length``. The
-final ragged batch repeats its last item. Artifacts are read with
-``np.load`` on a small thread pool; the JAX package's native C reader is not
-copied.
+FastSpeech2 batches are padded numpy arrays of one shape for the whole run:
+text to the corpus's longest token sequence, frames to the model's
+``max_length``. HiFiGAN batches are one random (mel, audio) segment an item,
+drawn on the host as the JAX package draws them. The final ragged batch
+repeats its last item. Artifacts are read with ``np.load`` (and wavs with
+``dsp.audio_io.read_wav``) on a small thread pool; the JAX package's native
+C reader is not copied.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from everyvoice_tpu_torch.dsp.audio_io import read_wav
 from everyvoice_tpu_torch.preprocessor.preprocessor import FILENAME_SEP
 from everyvoice_tpu_torch.text import TextProcessor
 
@@ -197,3 +200,123 @@ class FastSpeech2Dataset:
 def it_mel_frames(dataset: FastSpeech2Dataset, idx: int) -> int:
     item = dataset.items[idx]
     return int(np.load(dataset._path(item, "spec", dataset._spec_name()), mmap_mode="r").shape[1])
+
+
+class HiFiGANDataset:
+    """Loads (mel, waveform) pairs for vocoder training from a HiFiGAN config
+    dict (``config.hifigan_training_config``): the preprocessed spec, or
+    under ``finetune`` the teacher-forced ``synthesized_spec``, and the
+    output-rate audio."""
+
+    def __init__(self, filelist: list, config: dict, finetune: bool = False):
+        self.config = config
+        self.save_dir = Path(config["preprocessing"]["save_dir"])
+        self.audio_config = config["preprocessing"]["audio"]
+        self.finetune = finetune
+        self.output_sr = self.audio_config["output_sampling_rate"]
+        self.input_sr = self.audio_config["input_sampling_rate"]
+        self.items = [it for it in filelist if self._usable(it)]
+        self._cache: dict = {}
+        self.max_cache_items = 2000
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def _path(self, item: dict, folder: str, fn: str) -> Path:
+        speaker = item.get("speaker") or "default"
+        language = item.get("language") or "default"
+        return self.save_dir / folder / FILENAME_SEP.join([item["basename"], speaker, language, fn])
+
+    def _spec_name(self) -> str:
+        return f"spec-{self.input_sr}-{self.audio_config['spec_type']}.npy"
+
+    def _spec_folder(self) -> str:
+        return "synthesized_spec" if self.finetune else "spec"
+
+    def _usable(self, item: dict) -> bool:
+        return (self._path(item, self._spec_folder(), self._spec_name()).exists()
+                and self._path(item, "audio", f"audio-{self.output_sr}.wav").exists())
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def load_item(self, idx: int) -> dict:
+        cached = self._cache.get(idx)
+        if cached is not None:
+            return cached
+        item = self.items[idx]
+        spec = np.load(self._path(item, self._spec_folder(), self._spec_name()))
+        audio, _ = read_wav(self._path(item, "audio", f"audio-{self.output_sr}.wav"))
+        out = {
+            "basename": item["basename"],
+            "mel": spec.T.astype(np.float32),  # (T, M)
+            "audio": audio[0].astype(np.float32),
+        }
+        if len(self._cache) < self.max_cache_items:
+            self._cache[idx] = out
+        return out
+
+    def _load(self, idxs) -> list:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=min(os.cpu_count() or 4, 8),
+                                            thread_name_prefix="hifigan-io")
+        return _parallel_load(self.load_item, list(idxs), self._pool)
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                drop_last: bool = False) -> Iterator[dict]:
+        """Whole utterances, padded to the corpus's longest spec and its
+        samples (frames · hop · output/input rate)."""
+        n = len(self.items)
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(n) if shuffle else np.arange(n)
+        max_frames = max((int(np.load(self._path(it, self._spec_folder(), self._spec_name()),
+                                       mmap_mode="r").shape[1]) for it in self.items), default=0)
+        max_samples = max_frames * self.audio_config["fft_hop_size"] * (self.output_sr // self.input_sr)
+        for bi in range(_n_batches(n, batch_size, drop_last)):
+            items = self._load(order[bi * batch_size : (bi + 1) * batch_size])
+            while len(items) < batch_size:
+                items.append(items[-1])
+            b = len(items)
+            batch = {
+                "mel": np.zeros((b, max_frames, items[0]["mel"].shape[1]), np.float32),
+                "mel_lengths": np.zeros((b,), np.int32),
+                "audio": np.zeros((b, max_samples), np.float32),
+                "audio_lengths": np.zeros((b,), np.int32),
+                "basenames": [it["basename"] for it in items],
+            }
+            for i, it in enumerate(items):
+                t = min(it["mel"].shape[0], max_frames)
+                s = min(len(it["audio"]), max_samples)
+                batch["mel"][i, :t] = it["mel"][:t]
+                batch["mel_lengths"][i] = t
+                batch["audio"][i, :s] = it["audio"][:s]
+                batch["audio_lengths"][i] = s
+            yield batch
+
+    def segment_batches(self, batch_size: int, segment_size: int, shuffle: bool = True,
+                        seed: int = 0, drop_last: bool = False) -> Iterator[dict]:
+        """One random fixed-size (mel, audio) segment an item. The generator
+        ``default_rng(seed)`` draws the permutation, then one start frame an
+        item in batch order (the JAX package's order, so the batches are
+        bit-equal); without ``shuffle`` every segment starts at 0."""
+        n = len(self.items)
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(n) if shuffle else np.arange(n)
+        hop = self.audio_config["fft_hop_size"] * (self.output_sr // self.input_sr)
+        seg_frames = segment_size // hop
+        for bi in range(_n_batches(n, batch_size, drop_last)):
+            items = self._load(order[bi * batch_size : (bi + 1) * batch_size])
+            while len(items) < batch_size:
+                items.append(items[-1])
+            b = len(items)
+            batch = {
+                "mel": np.zeros((b, seg_frames, items[0]["mel"].shape[1]), np.float32),
+                "audio": np.zeros((b, segment_size), np.float32),
+                "basenames": [it["basename"] for it in items],
+            }
+            for i, it in enumerate(items):
+                max_start = max(it["mel"].shape[0] - seg_frames, 0)
+                start = int(rng.integers(0, max_start + 1)) if shuffle else 0
+                mel = it["mel"][start : start + seg_frames]
+                batch["mel"][i, : mel.shape[0]] = mel
+                audio = it["audio"][start * hop : start * hop + segment_size]
+                batch["audio"][i, : len(audio)] = audio
+            yield batch

@@ -125,6 +125,20 @@ def padded_window(win_length: int, n_fft: int) -> np.ndarray:
     return np.pad(hann_window(win_length), (lpad, n_fft - win_length - lpad))
 
 
+@lru_cache(maxsize=32)
+def _on_device(make, args: tuple, device: torch.device) -> torch.Tensor:
+    """``make(*args)``, a host constant, copied to ``device`` once per
+    (function, arguments, device); callers only read it."""
+    return torch.from_numpy(np.ascontiguousarray(make(*args))).to(device)
+
+
+def _rdft_part(n_fft: int, index: int, transpose: bool) -> np.ndarray:
+    """The real-DFT basis's cos (0) or -sin (1) half, (n_fft, n_bins) or
+    transposed."""
+    part = _rdft_basis(n_fft)[index]
+    return part.T if transpose else part
+
+
 # ---------------------------------------------------------------------------
 # Framing + STFT
 
@@ -145,12 +159,12 @@ def stft_real_imag(
     """Centred STFT with the periodic Hann window, as the real DFT against
     the cos and -sin bases; returns (real, imag), each (..., n_bins,
     n_frames)."""
-    window = torch.from_numpy(padded_window(win_length, n_fft)).to(audio.device)
+    device = audio.device
+    window = _on_device(padded_window, (win_length, n_fft), device)
     frames = frame_signal(audio, n_fft, hop_length) * window
-    cos_b, msin_b = _rdft_basis(n_fft)
     with no_tf32():
-        real = frames @ torch.from_numpy(cos_b).to(audio.device)
-        imag = frames @ torch.from_numpy(msin_b).to(audio.device)
+        real = frames @ _on_device(_rdft_part, (n_fft, 0, False), device)
+        imag = frames @ _on_device(_rdft_part, (n_fft, 1, False), device)
     return real.transpose(-1, -2), imag.transpose(-1, -2)
 
 
@@ -170,6 +184,15 @@ def stft_power(
     return torch.pow(mag_sq, power / 2.0)
 
 
+def _istft_bin_weights(n_fft: int) -> np.ndarray:
+    """Conjugate-symmetric expansion weights: bins 1..n-2 count twice."""
+    weights = np.ones(n_fft // 2 + 1, dtype=np.float32) * 2.0
+    weights[0] = 1.0
+    if n_fft % 2 == 0:
+        weights[-1] = 1.0
+    return weights
+
+
 def istft(
     real: torch.Tensor,
     imag: torch.Tensor,
@@ -187,22 +210,15 @@ def istft(
         raise ValueError("iSTFT requires hop | n_fft")
     window = padded_window(win_length, n_fft)
     device = real.device
-    n_bins = n_fft // 2 + 1
-    cos_b, msin_b = _rdft_basis(n_fft)
-    # Conjugate-symmetric expansion weights: bins 1..n-2 count twice.
-    weights = np.ones(n_bins, dtype=np.float32) * 2.0
-    weights[0] = 1.0
-    if n_fft % 2 == 0:
-        weights[-1] = 1.0
-    weights_t = torch.from_numpy(weights).to(device)
+    weights_t = _on_device(_istft_bin_weights, (n_fft,), device)
     real_t = real.transpose(-1, -2) * weights_t  # (..., frames, bins)
     imag_t = imag.transpose(-1, -2) * weights_t
     with no_tf32():
         frames = (
-            real_t @ torch.from_numpy(np.ascontiguousarray(cos_b.T)).to(device)
-            + imag_t @ torch.from_numpy(np.ascontiguousarray(msin_b.T)).to(device)
+            real_t @ _on_device(_rdft_part, (n_fft, 0, True), device)
+            + imag_t @ _on_device(_rdft_part, (n_fft, 1, True), device)
         ) / n_fft
-    frames = frames * torch.from_numpy(window).to(device)
+    frames = frames * _on_device(padded_window, (win_length, n_fft), device)
     n_frames = frames.shape[-2]
     out_len = n_fft + hop_length * (n_frames - 1)
     batch_shape = frames.shape[:-2]
@@ -257,14 +273,14 @@ def get_spectral_transform(
     audio to a spectrogram, or None for an unknown spec_type."""
     if spec_type in ("mel-librosa", "mel"):
         make_basis = librosa_mel_basis if spec_type == "mel-librosa" else htk_mel_basis
-        basis = torch.from_numpy(make_basis(sample_rate, n_fft, n_mels, f_min, f_max))
+        basis_args = (sample_rate, n_fft, n_mels, f_min, f_max)
 
         def mel_transform(audio):
             power = stft_power(audio, n_fft, win_length, hop_length, power=2.0)
             if spec_type == "mel-librosa":
                 power = torch.sqrt(power + 1e-9)
             with no_tf32():
-                return basis.to(audio.device) @ power
+                return _on_device(make_basis, basis_args, audio.device) @ power
 
         return mel_transform
     if spec_type == "linear":

@@ -7,9 +7,10 @@ most ``batch_size``), runs FastSpeech2 and the HiFiGAN generator on the
 padded batch and reassembles the results per text — the same padded shapes
 as the JAX package, which its outputs depend on (GroupNorm statistics span
 the padding). Entry points run on the CUDA card unless ``device`` names the
-CPU. Textgrid and read-along outputs, style references,
-``export_generator`` and ``synthesize_teacher_forced_specs`` are a later
-slice of the port.
+CPU. ``export_generator`` strips a HiFiGAN training checkpoint to the
+generator that serving loads. Textgrid and read-along outputs, style
+references and ``synthesize_teacher_forced_specs`` are a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from everyvoice_tpu_torch.dsp import write_wav
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
 from everyvoice_tpu_torch.text import TextProcessor, chunk_text
-from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+from everyvoice_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from everyvoice_tpu_torch.utils import slugify, truncate_basename
 from everyvoice_tpu_torch.utils.precision import resolve_compute_dtype
 
@@ -70,8 +71,8 @@ def load_fs2_from_checkpoint(ckpt_path: Path | str, compute_dtype: str = "float3
 
 def load_vocoder_from_checkpoint(ckpt_path: Path | str, compute_dtype: str = "auto", device=None):
     """(generator, config) from a HiFiGAN (full) or HiFiGANGenerator
-    (exported) checkpoint. 'auto' resolves to bfloat16 on a card and
-    float32 on the CPU."""
+    (exported) checkpoint, of either resblock and with or without the iSTFT
+    head. 'auto' resolves to bfloat16 on a card and float32 on the CPU."""
     device = resolve_device(device)
     compute_dtype = resolve_compute_dtype(compute_dtype, device)
     ckpt = load_checkpoint(ckpt_path)
@@ -88,8 +89,24 @@ def load_vocoder_from_checkpoint(ckpt_path: Path | str, compute_dtype: str = "au
     torch_state, _ = flax_to_torch(params, generator)
     generator.load_state_dict(torch_state)
     generator = generator.to(device).eval()
-    generator.prepare()
+    if generator.resblock == "1":
+        generator.prepare()  # the MRF kernel's weights, folded before the first request
     return generator, config
+
+
+def export_generator(full_ckpt: Path | str, out_path: Path | str) -> Path:
+    """Strip a HiFiGAN training checkpoint's discriminators and optimizer
+    state into a HiFiGANGenerator checkpoint (the JAX package's
+    ``export_generator``; both packages load it)."""
+    ckpt = load_checkpoint(full_ckpt)
+    if ckpt["model_info"]["name"] != "HiFiGAN":
+        raise ValueError("export expects a full HiFiGAN training checkpoint")
+    hp = ckpt["hyper_parameters"]
+    return save_checkpoint(
+        out_path, "HiFiGANGenerator", hp["config"], ckpt["state_dict"]["generator"],
+        step=ckpt.get("global_step", 0), lang2id=hp.get("lang2id"),
+        speaker2id=hp.get("speaker2id"), stats=hp.get("stats"),
+    )
 
 
 class Synthesizer:

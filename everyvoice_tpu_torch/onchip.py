@@ -1,7 +1,9 @@
 """What the on-card check (``chip_smoke.py``) and the serving profile
 (``python -m everyvoice_tpu_torch.profile_serving``) share: the card's name
 and power limit, the requests they send, seeded full-width checkpoints to
-serve them from, and a seeded wav corpus to preprocess.
+serve them from, a seeded wav corpus to preprocess, and the vocoder training
+configs on that corpus (HiFiGAN V1 at its default full width, and the
+iSTFTNet variant).
 
 The checkpoints hold random FastSpeech2 and HiFiGAN V1 weights at the
 default widths, drawn from a ``torch.Generator``, with the duration head's
@@ -127,3 +129,31 @@ def write_corpus(root: Path, n_utts: int, seed: int = 0, sr: int = 22050) -> tup
     filelist = root / "filelist.psv"
     filelist.write_text("\n".join(rows) + "\n", encoding="utf8")
     return filelist, wav_dir, total_seconds
+
+
+CONTACT = {"contact_name": "Chip Smoke", "contact_email": "smoke@example.org"}
+# The iSTFTNet variant the vocoder recipes train: two upsampling stages of 8
+# and an inverse STFT of hop 4 (n_fft 16) for the rest of the 256-sample hop.
+ISTFT_MODEL = {"istft_layer": True, "upsample_rates": [8, 8], "upsample_kernel_sizes": [16, 16],
+               "upsample_initial_channel": 512}
+
+
+def vocoder_config(corpus: dict, logs: Path, version: str, model: dict | None = None,
+                   **training) -> dict:
+    """A HiFiGAN training config on a preprocessed corpus (``corpus`` holds
+    its ``preprocessing`` section): the default V1 model unless ``model``
+    says otherwise, the default AdamW, batch 16 and 8192-sample segments,
+    the corpus's split filelists, checkpoints under ``logs``."""
+    save = Path(corpus["preprocessing"]["save_dir"])
+    return {
+        "contact": CONTACT,
+        "model": model or {},
+        "preprocessing": corpus["preprocessing"],
+        "training": {
+            "batch_size": 16,
+            "training_filelist": str(save / "training_filelist.psv"),
+            "validation_filelist": str(save / "validation_filelist.psv"),
+            "logger": {"save_dir": str(logs), "name": "vocoder", "version": version},
+            **training,
+        },
+    }

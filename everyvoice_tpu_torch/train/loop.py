@@ -1,5 +1,6 @@
-"""FastSpeech2 training on one device (counterpart of
-everyvoice_tpu/train/loop.py: ``TrainerBase`` and ``FastSpeech2Trainer``).
+"""FastSpeech2 and HiFiGAN training on one device (counterpart of
+everyvoice_tpu/train/loop.py: ``TrainerBase``, ``FastSpeech2Trainer`` and
+``HiFiGANTrainer``).
 
 The run directory is ``<save_dir>/<name>/<version>/<sub_dir>`` with
 ``hparams.yaml``, ``metrics.jsonl``, a TensorBoard event file and
@@ -11,11 +12,11 @@ package resumes from the other's files, through the same three-way gate
 
 Parameters, losses and optimizer state are float32; the model's convs and
 matmuls run in the compute dtype ('auto': bfloat16 on a card, float32 on the
-CPU), and float32 work runs with TF32 off. Each batch's ``mel`` and
-``attn_prior`` are rounded to float16 on the host, as the JAX package
-rounds them for the transfer. Dropout masks come from a ``torch.Generator``
-seeded with the crc32 of the logger name; parameters are initialised from
-one seeded with 0.
+CPU), and float32 work runs with TF32 off. Each batch's ``mel`` (and
+FastSpeech2's ``attn_prior``) is rounded to float16 on the host, as the JAX
+package rounds it for the transfer. Dropout masks come from a
+``torch.Generator`` seeded with the crc32 of the logger name; parameters are
+initialised from one seeded with 0.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import math
 import threading
 import time
 import zlib
+from functools import partial
 from pathlib import Path
 from typing import Optional
 
@@ -33,12 +35,29 @@ import torch
 from torch import nn
 
 from everyvoice_tpu_torch.config import model_checkpoint_dump
-from everyvoice_tpu_torch.convert import flax_to_torch, torch_to_flax
+from everyvoice_tpu_torch.convert import flax_to_torch, hifigan_tree, torch_to_flax
 from everyvoice_tpu_torch.dataloader import imbalanced_sample_weights
 from everyvoice_tpu_torch.dataloader.prefetch import prefetch, to_device
 from everyvoice_tpu_torch.device import resolve_device
+from everyvoice_tpu_torch.dsp.spectral import dynamic_range_compression, get_spectral_transform
 from everyvoice_tpu_torch.models.fs2.loss import compute_fs2_losses
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
+from everyvoice_tpu_torch.models.hifigan.loss import (
+    FEATURE_MATCHING_WEIGHT,
+    MEL_LOSS_WEIGHT,
+    discriminator_loss,
+    feature_matching_loss,
+    generator_adversarial_loss,
+    mel_l1_loss,
+)
+from everyvoice_tpu_torch.models.hifigan.model import (
+    HiFiGANDiscriminators,
+    HiFiGANGenerator,
+    SpectralNormConv1d,
+    WNConv1d,
+    WNConv2d,
+    WNConvTranspose1d,
+)
 from everyvoice_tpu_torch.models.layers import set_dropout_generator
 from everyvoice_tpu_torch.parallel import (
     compress_for_transfer,
@@ -54,7 +73,6 @@ from everyvoice_tpu_torch.utils.precision import no_tf32, resolve_compute_dtype
 
 logger = logging.getLogger(__name__)
 
-COMPRESSED = ("mel", "attn_prior")
 
 
 def _resolve_val_interval(value, steps_per_epoch: int) -> int:
@@ -117,6 +135,9 @@ def _host_floats(values: dict) -> dict:
     return out
 
 
+LECUN_TRUNCATED_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
 def _truncated_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
     """flax's truncated normal in [-2, 2] standard deviations, by the
     inverse CDF of a uniform draw."""
@@ -135,7 +156,7 @@ def init_fs2_parameters(model: FastSpeech2, gen: torch.Generator) -> None:
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv1d)):
             fan_in = module.weight[0].numel()
-            std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+            std = 1.0 / math.sqrt(fan_in) / LECUN_TRUNCATED_STD
             module.weight.copy_(_truncated_normal(module.weight.shape, std, gen))
             module.bias.zero_()
         elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
@@ -145,6 +166,26 @@ def init_fs2_parameters(model: FastSpeech2, gen: torch.Generator) -> None:
             std = 1.0 / math.sqrt(module.weight.shape[1])
             module.weight.copy_(std * torch.randn(module.weight.shape, generator=gen))
     model.duration_predictor.head.bias.fill_(1.6)
+
+
+@torch.no_grad()
+def init_hifigan_parameters(module: nn.Module, gen: torch.Generator) -> None:
+    """flax's default initialisers for HiFiGAN's generator or
+    discriminators, drawn from the host generator ``gen``: conv and
+    transposed-conv kernels lecun-normal over their flax fan-in, zero biases,
+    unit weight-norm scales."""
+    for m in module.modules():
+        if isinstance(m, WNConvTranspose1d):  # flax kernel (k, C_in, C_out)
+            fan_in = m.weight.shape[0] * m.weight.shape[2]
+        elif isinstance(m, (WNConv1d, WNConv2d, SpectralNormConv1d)):
+            fan_in = m.weight[0].numel()
+        else:
+            continue
+        std = 1.0 / math.sqrt(fan_in) / LECUN_TRUNCATED_STD
+        m.weight.copy_(_truncated_normal(m.weight.shape, std, gen))
+        m.bias.zero_()
+        if hasattr(m, "scale"):
+            m.scale.fill_(1.0)
 
 
 class TrainerBase:
@@ -258,6 +299,87 @@ class TrainerBase:
                 logger.info(f"Wrote profiler trace to {self.run_dir}/profile")
                 self._profiler = None
 
+    # -- the loop --------------------------------------------------------
+    # A trainer defines ``_epoch_batches()`` (this epoch's host batches),
+    # ``_dispatch(n_steps, batch)`` (that many optimizer steps on a device
+    # batch, stacked when more than one; the last step's losses),
+    # ``_learning_rate()``, ``validate()`` and ``host_state()`` ((params
+    # tree, optimizer tree) on the host, in the JAX layouts).
+    compressed: tuple = ()  # float32 batch entries rounded to float16 for the transfer
+
+    @staticmethod
+    def _run_steps(n_steps: int, batch: dict, step) -> dict:
+        if n_steps == 1:
+            return step(batch)
+        for k in range(n_steps):  # the last step's losses are logged
+            losses = step({key: v[k] for key, v in batch.items()})
+        return losses
+
+    def _device_batches(self, spe: int):
+        """(n_steps, device batch) pairs: single batches, or ``spe`` stacked
+        into one (spe, batch, ...) transfer; an epoch's leftovers go
+        singly."""
+        group: list = []
+        for host_batch in self._epoch_batches():
+            host_batch.pop("basenames", None)
+            host_batch = compress_for_transfer(pad_batch_to_devices(host_batch, 1), self.compressed)
+            if spe <= 1:
+                yield 1, to_device(host_batch, self.device)
+                continue
+            group.append(host_batch)
+            if len(group) == spe:
+                yield spe, to_device(stack_batches(group), self.device)
+                group = []
+        for host_batch in group:
+            yield 1, to_device(host_batch, self.device)
+
+    def _train_loop(self, max_steps: int, log_every: int, profile_steps: int,
+                    steps_per_execution: int) -> None:
+        """Epochs of dispatches until ``max_steps`` or ``max_epochs``:
+        training metrics every ``log_every`` steps, validation and a
+        checkpoint every ``val_check_interval``, and a final one unless the
+        last validation wrote this very step."""
+        t = self.training_config
+        spe = max(int(steps_per_execution), 1)
+        val_interval = _resolve_val_interval(
+            t["val_check_interval"], len(self.dataset.items) // max(t["batch_size"], 1))
+        stop = False
+        dispatches = 0
+        last_val_step = -1
+        while not stop and self.epoch < t["max_epochs"]:
+            steps_at_epoch_start = self.global_step
+            for n_steps, batch in prefetch(self._device_batches(spe)):
+                # From the second dispatch (the first warms up), counted in
+                # dispatches so stacked and resumed runs trigger it too.
+                if dispatches == 1 and profile_steps:
+                    self.start_profile(profile_steps)
+                losses = self._dispatch(n_steps, batch)
+                dispatches += 1
+                prev_step = self.global_step
+                self.global_step += n_steps
+                self.tick_profile()
+                if self.global_step // log_every > prev_step // log_every:
+                    metrics = {f"training/{k}": v for k, v in losses.items()}
+                    metrics["training/lr"] = self._learning_rate()
+                    self.log_metrics(metrics, self.global_step)
+                if self.global_step // val_interval > prev_step // val_interval:
+                    val = self.validate()
+                    last_val_step = self.global_step
+                    self.log_metrics({f"validation/{k}": v for k, v in val.items()},
+                                     self.global_step)
+                    self.maybe_checkpoint(val["total"], *self.host_state())
+                if self.global_step >= max_steps:
+                    stop = True
+                    break
+            if self.global_step == steps_at_epoch_start and not stop:
+                raise RuntimeError("Epoch produced no training batches — the dataset is "
+                                   "empty (check filelists and preprocessed artifacts).")
+            self.epoch += 1
+        if last_val_step != self.global_step:
+            val = self.validate()
+            self.maybe_checkpoint(val["total"], *self.host_state())
+        self.wait_for_checkpoints()
+
     def load_finetune_checkpoint(self) -> tuple:
         """(params tree, optimizer tree or None) from
         ``training.finetune_checkpoint``, or (None, None) without one. An
@@ -291,6 +413,7 @@ class FastSpeech2Trainer(TrainerBase):
     caller names the CPU)."""
 
     model_name = "FastSpeech2"
+    compressed = ("mel", "attn_prior")
 
     def __init__(self, config: dict, dataset, val_dataset, lang2id: dict, speaker2id: dict,
                  stats: Optional[dict] = None, run_dir: Optional[Path] = None,
@@ -387,89 +510,32 @@ class FastSpeech2Trainer(TrainerBase):
         return (self._to_flax(self.model.state_dict()),
                 self.optimizer.to_optax(self.opt_state, self._to_flax))
 
-    def _device_batches(self, seed: int, weights, spe: int):
-        """(n_steps, device batch) pairs: single batches, or ``spe`` stacked
-        into one (spe, batch, ...) transfer; an epoch's leftovers go
-        singly."""
+    def _epoch_batches(self):
         t = self.training_config
-        group: list = []
-        for host_batch in self.dataset.batches(t["batch_size"], shuffle=True, seed=seed,
-                                               drop_last=True, weights=weights):
-            host_batch.pop("basenames", None)
-            host_batch = compress_for_transfer(pad_batch_to_devices(host_batch, 1), COMPRESSED)
-            if spe <= 1:
-                yield 1, to_device(host_batch, self.device)
-                continue
-            group.append(host_batch)
-            if len(group) == spe:
-                yield spe, to_device(stack_batches(group), self.device)
-                group = []
-        for host_batch in group:
-            yield 1, to_device(host_batch, self.device)
+        weights = None
+        if t["use_weighted_sampler"]:
+            weights = imbalanced_sample_weights(
+                [f'{it.get("language")}/{it.get("speaker")}' for it in self.dataset.items])
+        return self.dataset.batches(t["batch_size"], shuffle=True, seed=self.epoch,
+                                    drop_last=True, weights=weights)
+
+    def _dispatch(self, n_steps: int, batch: dict) -> dict:
+        ramp = min(1.0, (self.epoch + 1) / max(self.training_config["attn_bin_loss_warmup_epochs"], 1))
+        return self._run_steps(n_steps, batch, lambda b: self.train_step(b, ramp))
+
+    def _learning_rate(self) -> float:
+        return learning_rate_at(self.training_config["optimizer"], self.global_step, self.model.dim)
 
     def fit(self, max_steps: Optional[int] = None, log_every: int = 10,
             profile_steps: int = 0, steps_per_execution: int = 1) -> FastSpeech2:
-        t = self.training_config
-        max_steps = max_steps if max_steps is not None else t["max_steps"]
-        spe = max(int(steps_per_execution), 1)
         self.init_params()
         tree, opt_tree = self.load_finetune_checkpoint()
         if tree is not None:
             self.load_params(tree)
         self.opt_state = (self.optimizer.init(self.params) if opt_tree is None
                           else self.optimizer.from_optax(opt_tree, self._from_flax))
-
-        val_interval = _resolve_val_interval(
-            t["val_check_interval"], len(self.dataset.items) // max(t["batch_size"], 1))
-        stop = False
-        dispatches = 0
-        last_val_step = -1
-        while not stop and self.epoch < t["max_epochs"]:
-            steps_at_epoch_start = self.global_step
-            weights = None
-            if t["use_weighted_sampler"]:
-                weights = imbalanced_sample_weights(
-                    [f'{it.get("language")}/{it.get("speaker")}' for it in self.dataset.items])
-            for n_steps, batch in prefetch(self._device_batches(self.epoch, weights, spe)):
-                bin_ramp = min(1.0, (self.epoch + 1) / max(t["attn_bin_loss_warmup_epochs"], 1))
-                # From the second dispatch (the first warms up), counted in
-                # dispatches so stacked and resumed runs trigger it too.
-                if dispatches == 1 and profile_steps:
-                    self.start_profile(profile_steps)
-                if n_steps == 1:
-                    losses = self.train_step(batch, bin_ramp)
-                else:
-                    for k in range(n_steps):  # the last step's losses are logged
-                        losses = self.train_step({key: v[k] for key, v in batch.items()},
-                                                 bin_ramp)
-                dispatches += 1
-                prev_step = self.global_step
-                self.global_step += n_steps
-                self.tick_profile()
-                if self.global_step // log_every > prev_step // log_every:
-                    metrics = {f"training/{k}": v for k, v in losses.items()}
-                    metrics["training/lr"] = learning_rate_at(t["optimizer"], self.global_step,
-                                                              self.model.dim)
-                    self.log_metrics(metrics, self.global_step)
-                if self.global_step // val_interval > prev_step // val_interval:
-                    val = self.validate()
-                    last_val_step = self.global_step
-                    self.log_metrics({f"validation/{k}": v for k, v in val.items()},
-                                     self.global_step)
-                    self.maybe_checkpoint(val["total"], *self.host_state())
-                if self.global_step >= max_steps:
-                    stop = True
-                    break
-            if self.global_step == steps_at_epoch_start and not stop:
-                raise RuntimeError("Epoch produced no training batches — the dataset is "
-                                   "empty (check filelists and preprocessed artifacts).")
-            self.epoch += 1
-        # Always leave a final checkpoint, unless the last validation wrote
-        # this very step.
-        if last_val_step != self.global_step:
-            val = self.validate()
-            self.maybe_checkpoint(val["total"], *self.host_state())
-        self.wait_for_checkpoints()
+        self._train_loop(max_steps if max_steps is not None else self.training_config["max_steps"],
+                         log_every, profile_steps, steps_per_execution)
         return self.model
 
     @torch.no_grad()
@@ -483,7 +549,7 @@ class FastSpeech2Trainer(TrainerBase):
         for batch in self.val_dataset.batches(batch_size, shuffle=False):
             batch.pop("basenames", None)
             batch, n_true = pad_batch_for_eval(batch, 1, batch_size)
-            batch = to_device(compress_for_transfer(batch, COMPRESSED), self.device)
+            batch = to_device(compress_for_transfer(batch, self.compressed), self.device)
             with no_tf32():
                 losses = _host_floats(self.losses(batch, 1.0))
             for k, v in losses.items():
@@ -529,3 +595,195 @@ class FastSpeech2Trainer(TrainerBase):
             generator, vconfig = load_vocoder_from_checkpoint(path, "auto", self.device)
             self._vocoder = (generator, vconfig["preprocessing"]["audio"]["output_sampling_rate"])
         return self._vocoder
+
+
+class HiFiGANTrainer(TrainerBase):
+    """Trains the HiFiGAN generator against the MPD and MSD on ``dataset``
+    (a ``HiFiGANDataset``), validating on ``val_dataset``, on ``device``
+    (the CUDA card unless the caller names the CPU).
+
+    A step is the JAX package's: the discriminator step on the generator's
+    output (detached), then the generator step (mel L1 · 45, and after
+    ``generator_warmup_steps`` the adversarial and feature-matching losses)
+    against the updated discriminators, each network with its own optimizer.
+    The generator runs once a step; gradients are taken with
+    ``torch.autograd.grad`` over one network's parameters, so neither step
+    touches the other's. During the warmup the discriminator update is
+    skipped whole (no decay, clip or count), and its loss is still logged.
+    Validation runs the inference forward, so ``mrf_stage`` runs there."""
+
+    model_name = "HiFiGAN"
+    compressed = ("mel",)
+
+    def __init__(self, config: dict, dataset, val_dataset, run_dir: Optional[Path] = None,
+                 gradient_clip_val: Optional[float] = None, compute_dtype: str = "auto",
+                 device=None):
+        super().__init__(config, run_dir=run_dir, device=device)
+        self.dataset = dataset
+        self.val_dataset = val_dataset
+        self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
+        with torch.device("meta"):  # no draw from the global RNG
+            generator = HiFiGANGenerator.from_config(config, self.compute_dtype)
+            discriminators = HiFiGANDiscriminators.from_config(config, self.compute_dtype)
+        self.generator = generator.to_empty(device=self.device)
+        self.discriminators = discriminators.to_empty(device=self.device)
+        self.gen_params = dict(self.generator.named_parameters())
+        self.disc_params = dict(self.discriminators.named_parameters())
+        t = self.training_config
+        self.gen_opt = build_optimizer(t["optimizer"], gradient_clip_val=gradient_clip_val)
+        self.disc_opt = build_optimizer(t["optimizer"], gradient_clip_val=gradient_clip_val)
+        self.gan_type = t["gan_type"]
+        self.wgan_clip = t["wgan_clip_value"]
+        a = config["preprocessing"]["audio"]
+        self.segment_size = a["vocoder_segment_size"]
+        # The loss's mel at the output rate's hop.
+        hop = a["fft_hop_size"] * (a["output_sampling_rate"] // a["input_sampling_rate"])
+        self.mel_fn = get_spectral_transform(
+            a["spec_type"], a["n_fft"], a["fft_window_size"], hop, a["output_sampling_rate"],
+            a["n_mels"], a["f_min"], a["f_max"])
+        self.gen_opt_state: Optional[dict] = None
+        self.disc_opt_state: Optional[dict] = None
+        self.grad_norm: Optional[torch.Tensor] = None
+        self.disc_grad_norm: Optional[torch.Tensor] = None
+
+    # -- steps ------------------------------------------------------------
+    def _log_mel(self, wav: torch.Tensor) -> torch.Tensor:
+        return dynamic_range_compression(self.mel_fn(wav))
+
+    def discriminator_grads(self, audio: torch.Tensor, fake: torch.Tensor, gan_on: bool) -> tuple:
+        """(discriminator loss, its gradients by parameter name, or None
+        during the warmup, when the loss is only logged)."""
+        with torch.set_grad_enabled(gan_on):
+            real_scores, _ = self.discriminators(audio)
+            fake_scores, _ = self.discriminators(fake.detach())
+            loss = discriminator_loss(real_scores, fake_scores, self.gan_type)
+        if not gan_on:
+            return loss, None
+        grads = torch.autograd.grad(loss, list(self.disc_params.values()))
+        return loss, dict(zip(self.disc_params, grads))
+
+    def update_discriminators(self, grads: dict) -> None:
+        self.disc_grad_norm = self.disc_opt.step(self.disc_params, grads, self.disc_opt_state)
+        if self.gan_type == "wgan":  # every leaf, weight-norm scales and biases too
+            with torch.no_grad():
+                params = list(self.disc_params.values())
+                torch._foreach_clamp_min_(params, -self.wgan_clip)
+                torch._foreach_clamp_max_(params, self.wgan_clip)
+
+    def generator_grads(self, audio: torch.Tensor, fake: torch.Tensor, gan_on: bool) -> tuple:
+        """(generator losses, gradients of their total by parameter name):
+        the mel L1 of the log-mels, and the adversarial and feature-matching
+        losses against the current discriminators (during the warmup only
+        logged; the real audio's features and mel carry no gradient)."""
+        with torch.no_grad():
+            mel_real = self._log_mel(audio)
+            _, real_feats = self.discriminators(audio)
+        loss_mel = mel_l1_loss(mel_real, self._log_mel(fake))
+        with torch.set_grad_enabled(gan_on):
+            fake_scores, fake_feats = self.discriminators(fake if gan_on else fake.detach())
+            loss_adv = generator_adversarial_loss(fake_scores, self.gan_type)
+            loss_fm = feature_matching_loss(real_feats, fake_feats)
+        total = MEL_LOSS_WEIGHT * loss_mel + float(gan_on) * (
+            loss_adv + FEATURE_MATCHING_WEIGHT * loss_fm)
+        grads = torch.autograd.grad(total, list(self.gen_params.values()))
+        losses = {"gen/mel": loss_mel, "gen/adv": loss_adv, "gen/fm": loss_fm, "gen/total": total}
+        return losses, dict(zip(self.gen_params, grads))
+
+    def update_generator(self, grads: dict) -> None:
+        self.grad_norm = self.gen_opt.step(self.gen_params, grads, self.gen_opt_state)
+
+    def train_step(self, batch: dict, gan_on: bool) -> dict:
+        """One GAN step on a device batch; returns its (detached) losses,
+        each computed before the update it drives."""
+        batch = _decompress(batch)
+        audio = batch["audio"]
+        with no_tf32():
+            fake = self.generator.train_forward(batch["mel"])
+            d_loss, d_grads = self.discriminator_grads(audio, fake, gan_on)
+            if gan_on:
+                self.update_discriminators(d_grads)
+            losses, g_grads = self.generator_grads(audio, fake, gan_on)
+            self.update_generator(g_grads)
+        return {k: v.detach() for k, v in {"disc/total": d_loss, **losses}.items()}
+
+    def init_params(self, seed: int = 0) -> None:
+        """flax-like initial parameters for both networks, drawn on the host
+        from one generator seeded with ``seed`` and copied to the device."""
+        gen = torch.Generator().manual_seed(seed)
+        init_hifigan_parameters(self.generator, gen)
+        init_hifigan_parameters(self.discriminators, gen)
+
+    def load_params(self, tree: dict) -> None:
+        """Parameters from the JAX trainer's checkpoint tree: its
+        ``generator`` and ``discriminators`` subtrees, each where present."""
+        for key, module in (("generator", self.generator), ("discriminators", self.discriminators)):
+            if key in tree:
+                module.load_state_dict(flax_to_torch(tree[key], module)[0])
+
+    def _from_flax_for(self, module: nn.Module):
+        """A map of ``module``'s flax tree to named tensors on the device."""
+        def convert(tree: dict) -> dict:
+            state, _ = flax_to_torch(tree, module)
+            return {n: v.to(self.device) for n, v in state.items()}
+        return convert
+
+    def host_state(self) -> tuple:
+        params = hifigan_tree(self.generator.state_dict(), self.discriminators.state_dict(),
+                              self.generator, self.discriminators)
+        return params, {
+            "gen": self.gen_opt.to_optax(self.gen_opt_state,
+                                         partial(torch_to_flax, model=self.generator)),
+            "disc": self.disc_opt.to_optax(self.disc_opt_state,
+                                           partial(torch_to_flax, model=self.discriminators)),
+        }
+
+    def _epoch_batches(self):
+        return self.dataset.segment_batches(self.training_config["batch_size"], self.segment_size,
+                                            shuffle=True, seed=self.epoch, drop_last=True)
+
+    def _dispatch(self, n_steps: int, batch: dict) -> dict:
+        gan_on = self.global_step >= self.training_config["generator_warmup_steps"]
+        return self._run_steps(n_steps, batch, lambda b: self.train_step(b, gan_on))
+
+    def _learning_rate(self) -> float:
+        return learning_rate_at(self.training_config["optimizer"], self.global_step)
+
+    def fit(self, max_steps: Optional[int] = None, log_every: int = 10,
+            profile_steps: int = 0, steps_per_execution: int = 1) -> HiFiGANGenerator:
+        self.init_params()
+        tree, opt_tree = self.load_finetune_checkpoint()
+        if tree is not None:
+            self.load_params(tree)
+        opt_tree = opt_tree or {}
+        self.gen_opt_state = (
+            self.gen_opt.init(self.gen_params) if opt_tree.get("gen") is None
+            else self.gen_opt.from_optax(opt_tree["gen"], self._from_flax_for(self.generator)))
+        self.disc_opt_state = (
+            self.disc_opt.init(self.disc_params) if opt_tree.get("disc") is None
+            else self.disc_opt.from_optax(opt_tree["disc"], self._from_flax_for(self.discriminators)))
+        self._train_loop(max_steps if max_steps is not None else self.training_config["max_steps"],
+                         log_every, profile_steps, steps_per_execution)
+        return self.generator
+
+    @torch.no_grad()
+    def validate(self) -> dict:
+        """The mean mel L1 over real rows of the validation segments (each
+        from frame 0), through the generator's inference forward, in
+        batches of ``batch_size``, the last padded up to it with 0-weighted
+        rows."""
+        total, rows = 0.0, 0
+        batch_size = max(self.training_config["batch_size"], 1)
+        for batch in self.val_dataset.segment_batches(batch_size, self.segment_size,
+                                                      shuffle=False):
+            batch.pop("basenames", None)
+            batch, n_true = pad_batch_for_eval(batch, 1, batch_size)
+            batch = _decompress(to_device(compress_for_transfer(batch, self.compressed),
+                                          self.device))
+            fake = self.generator(batch["mel"])
+            with no_tf32():
+                diff = (self._log_mel(batch["audio"]) - self._log_mel(fake)).abs()
+            weights = batch["row_weights"]
+            loss = (diff.mean(dim=(1, 2)) * weights).sum() / weights.sum().clamp(min=1.0)
+            total += float(loss) * n_true
+            rows += n_true
+        return {"total": total / max(rows, 1)}

@@ -1,6 +1,8 @@
 """Tests that need a CUDA card: the port's hand-written kernels against their
-plain PyTorch versions, the wrappers' refusals, and one FastSpeech2 training
-step in bfloat16 and in float32. Without a card they skip.
+plain PyTorch versions, the wrappers' refusals, one FastSpeech2 training
+step and one HiFiGAN GAN step in bfloat16 and in float32, the vocoder's
+re-fold after an optimizer step and a ResBlock2 generator. Without a card
+they skip.
 
 This file imports nothing of JAX, so it also runs on a machine that has no
 JAX, without the repository's conftest (which imports it):
@@ -11,8 +13,10 @@ Tolerances: for the MRF stage, 1e-4 of max|ref| in float32 with TF32 off
 (sums in another order), 2e-2 of max|ref| in bfloat16 (conv operands
 rounded to bf16 in both versions; the order of the float32 sums still
 differs); for the log-mel, 1e-4 absolute, the JAX package's own
-kernel-vs-XLA tolerance; for the float32 training step, losses and gradient
-norm within 1e-3 relative of the CPU's from the same parameters (TF32 off).
+kernel-vs-XLA tolerance; for the float32 training steps, losses and gradient
+norms within 1e-3 relative of the CPU's from the same parameters (TF32 off);
+for float32 generator forwards on the card against the CPU's or against the
+torch-conv forward, 1e-4 of max|ref|.
 """
 
 import numpy as np
@@ -211,3 +215,109 @@ def test_fs2_training_step_on_the_card(card, tmp_path, compute_dtype):
         for key, value in want.items():
             assert losses[key].item() == pytest.approx(value.item(), rel=1e-3), key
         assert trainer.grad_norm.item() == pytest.approx(cpu.grad_norm.item(), rel=1e-3)
+
+
+GAN_MODEL = {"upsample_rates": [8, 2], "upsample_kernel_sizes": [16, 4],
+             "upsample_initial_channel": 128, "resblock_kernel_sizes": [3, 5],
+             "resblock_dilation_sizes": [[1, 3], [1, 2]], "mpd_layers": [2, 3], "msd_layers": 2}
+GAN_AUDIO = {"n_fft": 128, "fft_window_size": 128, "fft_hop_size": 16, "n_mels": 20,
+             "vocoder_segment_size": 512}
+
+
+def _gan_trainer(tmp_path, compute_dtype, device, model=GAN_MODEL):
+    """A small HiFiGAN trainer with seeded parameters and fresh optimizers,
+    and one synthetic batch of 4 segments on its device (mel rounded to
+    float16, as the trainer sends it)."""
+    from everyvoice_tpu_torch.config import hifigan_training_config
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.parallel import compress_for_transfer
+    from everyvoice_tpu_torch.train.loop import HiFiGANTrainer
+
+    config = hifigan_training_config({
+        "contact": {"contact_name": "Card Test", "contact_email": "card@example.org"},
+        "model": model, "preprocessing": {"audio": GAN_AUDIO},
+    })
+
+    class Data:
+        items: list = []
+
+    trainer = HiFiGANTrainer(config, Data(), Data(), run_dir=tmp_path / f"gan-{compute_dtype}",
+                             compute_dtype=compute_dtype, device=device)
+    trainer.init_params()
+    trainer.gen_opt_state = trainer.gen_opt.init(trainer.gen_params)
+    trainer.disc_opt_state = trainer.disc_opt.init(trainer.disc_params)
+    rng = np.random.default_rng(0)
+    t = np.arange(GAN_AUDIO["vocoder_segment_size"]) / 22050
+    batch = {"mel": (rng.standard_normal((4, 32, 20)) - 4.0).astype(np.float32),
+             "audio": (0.5 * np.sin(2 * np.pi * rng.uniform(100, 400, (4, 1)) * t)).astype(np.float32)}
+    return trainer, to_device(compress_for_transfer(batch, ("mel",)), trainer.device)
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_hifigan_gan_step_on_the_card(card, tmp_path, compute_dtype):
+    trainer, batch = _gan_trainer(tmp_path, compute_dtype, card)
+    params = {**trainer.gen_params, **{f"disc.{n}": p for n, p in trainer.disc_params.items()}}
+    before = {n: p.detach().clone() for n, p in params.items()}
+    launches = mrf_stage.launches
+    losses = trainer.train_step(batch, gan_on=True)
+    torch.cuda.synchronize()
+    assert mrf_stage.launches == launches  # the training step runs torch convs
+    assert trainer.device.type == "cuda" and trainer.compute_dtype == compute_dtype
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert torch.isfinite(trainer.grad_norm) and torch.isfinite(trainer.disc_grad_norm)
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in params.values())
+    # AdamW decays every parameter, so every one of both networks moves.
+    assert all(not torch.equal(before[n], p) for n, p in params.items())
+    if compute_dtype == "float32":
+        cpu, cpu_batch = _gan_trainer(tmp_path / "cpu", "float32", "cpu")
+        want = cpu.train_step(cpu_batch, gan_on=True)
+        for key, value in want.items():
+            assert losses[key].item() == pytest.approx(value.item(), rel=1e-3), key
+        assert trainer.grad_norm.item() == pytest.approx(cpu.grad_norm.item(), rel=1e-3)
+        assert trainer.disc_grad_norm.item() == pytest.approx(cpu.disc_grad_norm.item(), rel=1e-3)
+
+
+def test_vocoder_refolds_after_an_optimizer_step(card, tmp_path):
+    """The inference forward (the MRF kernel, folded weights cached) follows
+    the optimizer's in-place update: it agrees with the torch-conv forward
+    of the updated parameters."""
+    from everyvoice_tpu_torch.utils.precision import no_tf32
+
+    trainer, batch = _gan_trainer(tmp_path, "float32", card)
+    mel = batch["mel"].float()
+    launches = mrf_stage.launches
+    before = trainer.generator(mel)
+    trainer.train_step(batch, gan_on=True)
+    after = trainer.generator(mel)
+    with torch.no_grad(), no_tf32():
+        want = trainer.generator.train_forward(mel)
+    torch.cuda.synchronize()
+    assert mrf_stage.launches == launches + 2 * len(GAN_MODEL["upsample_rates"])
+    assert not torch.equal(before, after)
+    assert (after - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("istft", [False, True], ids=["tanh", "istft"])
+def test_resblock2_generator_on_the_card(card, istft):
+    """A ResBlock2 generator's forward (torch convs) on the card in float32
+    matches the CPU's; in bfloat16 it is finite and as long."""
+    from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
+    from everyvoice_tpu_torch.train.loop import init_hifigan_parameters
+
+    kwargs = dict(upsample_rates=(8, 2), upsample_kernel_sizes=(16, 4), upsample_initial_channel=128,
+                  resblock="2", resblock_kernel_sizes=(3, 7, 11),
+                  resblock_dilation_sizes=((1, 3, 5),) * 3, istft_layer=istft)
+    mel = torch.randn(2, 40, 80, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device, dtype in (("cpu", "float32"), ("cuda", "float32"), ("cuda", "bfloat16")):
+        gen = HiFiGANGenerator(**kwargs, compute_dtype=dtype)
+        init_hifigan_parameters(gen, torch.Generator().manual_seed(0))
+        launches = mrf_stage.launches
+        out[device, dtype] = gen.to(device)(mel.to(device)).float().cpu()
+        assert mrf_stage.launches == launches
+    want = out["cpu", "float32"]
+    hop = 16 * (4 if istft else 1)
+    assert want.shape == (2, 40 * hop)
+    assert (out["cuda", "float32"] - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.isfinite(out["cuda", "bfloat16"]).all()
+    assert out["cuda", "bfloat16"].shape == want.shape

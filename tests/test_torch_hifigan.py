@@ -111,8 +111,16 @@ def test_conv_transpose_same_alignment(kernel, stride):
 
 
 def test_unported_variants_raise():
+    """ResBlock2 and the iSTFT head are ported now (their parity is in
+    tests/test_torch_hifigan_train.py); only a resblock the JAX package does
+    not know still raises."""
     from everyvoice_tpu_torch.config import hifigan_config
 
-    for model in ({"resblock": "2"}, {"istft_layer": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            HiFiGANGenerator.from_config(hifigan_config({"model": model}))
+    gen = HiFiGANGenerator.from_config(hifigan_config({"model": {"resblock": "2"}}))
+    assert gen.resblock == "2" and len(gen.resblocks[0].convs) == 3
+    gen = HiFiGANGenerator.from_config(hifigan_config(
+        {"model": {"istft_layer": True, "upsample_rates": [8, 8],
+                   "upsample_kernel_sizes": [16, 16]}}))
+    assert (gen.istft_hop, gen.istft_n_fft, gen.conv_post.weight.shape[0]) == (4, 16, 18)
+    with pytest.raises(ValueError, match="resblock"):
+        HiFiGANGenerator.from_config(hifigan_config({"model": {"resblock": "3"}}))
