@@ -55,7 +55,20 @@ Phases, any failure of which exits nonzero:
    FastSpeech2 and it. Every MRF stage this phase runs (the validations,
    the iSTFT variant's forwards, the served requests) is held, on the
    weights being trained, to the plain version in bfloat16;
-9. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+9. a phone-level English voice with global style tokens: preprocess a
+   seeded 128-utterance corpus given as characters (language ``eng``)
+   through audio, text, pfs, spec, attn, energy and pitch, G2P giving the
+   phones, and hold every feature batch's log-mel to the plain version;
+   train FastSpeech2 at phone level with GST through ``train_text_to_spec``
+   (full width and depth, batch 16, bf16, 30 steps, validation at 30) and
+   set its median step beside phase 7's; write the teacher-forced specs in
+   float32; finetune the V1 vocoder of phase 8 on them 10 steps
+   (``finetune: true``); serve the 1-, 4- and 16-text requests in English
+   with a corpus wav as the style reference, into wav, spec, TextGrid and
+   read-along XML and HTML, each checked; hold one float32 synthesis with
+   the style reference to the CPU's. Every MRF stage of the phase (both
+   validations, the served requests) is held to the plain version;
+10. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -70,6 +83,7 @@ import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -96,6 +110,11 @@ VOCODER_VAL_INTERVAL = 30
 VOCODER_WARMUP = 10    # generator_warmup_steps: both branches of the gate run
 VOCODER_F32_SEGMENT = 8192  # the float32 card-vs-CPU step's segment
 ISTFT_STEPS = 4
+PHONE_UTTERANCES = 128
+PHONE_STEPS = ("audio", "text", "pfs", "spec", "attn", "energy", "pitch")
+PHONE_MODEL = {"target_text_representation_level": "phones", "use_global_style_token_module": True}
+PHONE_TRAIN_STEPS = 30
+FINETUNE_STEPS = 10
 
 
 def fail(message: str) -> None:
@@ -305,21 +324,23 @@ def check_served_stages(synth) -> list:
     return rows
 
 
-def reference_check(fs2_path: Path, voc_path: Path) -> dict:
-    """The card's float32 synthesis of one text against the CPU's."""
+def reference_check(fs2_path: Path, voc_path: Path, **options) -> dict:
+    """The card's float32 synthesis of one text against the CPU's;
+    ``options`` go to ``synthesize`` (a language, a style reference)."""
     import numpy as np
 
     from everyvoice_tpu_torch.models.fs2.synthesize import Synthesizer
     from everyvoice_tpu_torch.onchip import TEXTS
 
     text = TEXTS[:1]
-    card = Synthesizer(fs2_path, voc_path, compute_dtype="float32").synthesize(text)[0]
-    cpu = Synthesizer(fs2_path, voc_path, compute_dtype="float32", device="cpu").synthesize(text)[0]
+    card = Synthesizer(fs2_path, voc_path, compute_dtype="float32").synthesize(text, **options)[0]
+    cpu = Synthesizer(fs2_path, voc_path, compute_dtype="float32",
+                      device="cpu").synthesize(text, **options)[0]
     if not all(np.array_equal(a, b) for a, b in zip(card["durations"], cpu["durations"])):
         fail("card and CPU float32 synthesis chose different durations")
     mel_diff = float(np.abs(card["mel"] - cpu["mel"]).max())
     wav_diff = float(np.abs(card["wav"] - cpu["wav"]).max())
-    print(f"reference: card vs CPU float32, max |mel diff| {mel_diff:.3e}, "
+    print(f"reference: card vs CPU float32 {sorted(options)}, max |mel diff| {mel_diff:.3e}, "
           f"max |wav diff| {wav_diff:.3e} (tolerance 1e-3)", flush=True)
     if mel_diff > 1e-3 or wav_diff > 1e-3:
         fail("card and CPU float32 synthesis disagree")
@@ -585,6 +606,29 @@ def features_card_vs_cpu(cfg: dict, batch) -> dict:
     return row
 
 
+@contextmanager
+def timed_steps(trainer_class, step_s: list):
+    """``trainer_class.train_step`` timed on the host clock, the card
+    synchronized around each step; the seconds go to ``step_s``."""
+    import torch
+
+    plain_step = trainer_class.train_step
+
+    def timed_step(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_step(self, *args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer_class.train_step = timed_step
+    try:
+        yield
+    finally:
+        trainer_class.train_step = plain_step
+
+
 def training_config(root: Path, cfg: dict, voc_path: Path, version: str, **training) -> dict:
     """The corpus config with a training section: FastSpeech2's default
     model and Noam AdamW (warmup shortened), batch 16, the seeded vocoder
@@ -779,6 +823,7 @@ def train_phase(root: Path, cfg: dict, voc_path: Path, card: str) -> dict:
     import numpy as np
     import torch
 
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
     from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
     from everyvoice_tpu_torch.ops.mrf import mrf_stage
     from everyvoice_tpu_torch.train import loop
@@ -794,29 +839,28 @@ def train_phase(root: Path, cfg: dict, voc_path: Path, card: str) -> dict:
     forwards = []
     hook = torch.nn.modules.module.register_module_forward_hook(
         lambda module, *_: forwards.append(1) if isinstance(module, HiFiGANGenerator) else None)
-    step_s = []
-    plain_step = loop.FastSpeech2Trainer.train_step
-
-    def timed_step(self, batch, bin_ramp):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = plain_step(self, batch, bin_ramp)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        return out
-
-    loop.FastSpeech2Trainer.train_step = timed_step
+    step_s: list = []
+    # The validation audio's MRF stages, held to the plain version.
+    val_stages: dict = {}
+    hifigan.mrf_stage = checked_mrf_stages(val_stages)
     mrf_stage.launches = 0
     mrf_stage.kernel_launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
-        t0 = time.perf_counter()
-        trainer = train_text_to_spec(config, log_every=1)  # the card, 'auto' precision
-        wall = time.perf_counter() - t0
+        with timed_steps(loop.FastSpeech2Trainer, step_s):
+            t0 = time.perf_counter()
+            trainer = train_text_to_spec(config, log_every=1)  # the card, 'auto' precision
+            wall = time.perf_counter() - t0
     finally:
-        loop.FastSpeech2Trainer.train_step = plain_step
+        hifigan.mrf_stage = mrf_stage
         hook.remove()
     launches, vocoder_forwards = mrf_stage.launches, len(forwards)
+    stages = [val_stages[k] for k in sorted(val_stages)]
+    for stage in stages:
+        print("train validation stage " + json.dumps(stage), flush=True)
+    if sum(r["calls"] for r in stages) != launches:
+        fail(f"{launches} mrf_stage launches in validation, "
+             f"{sum(r['calls'] for r in stages)} held to the plain version")
     peak = torch.cuda.max_memory_allocated()
     if trainer.device.type != "cuda" or trainer.compute_dtype != "bfloat16":
         fail(f"the trainer resolved to {trainer.compute_dtype} on {trainer.device}")
@@ -853,7 +897,7 @@ def train_phase(root: Path, cfg: dict, voc_path: Path, card: str) -> dict:
         "float32_max_rel_diff": f32["max_rel_diff"], "card": card,
     }
     print("train " + json.dumps(row), flush=True)
-    return {"trainer": trainer, "launches": launches, "row": row}
+    return {"trainer": trainer, "launches": launches, "stages": stages, "row": row}
 
 
 def synthesize_trained(ckpt_path: Path, voc_path: Path, out_dir: Path) -> dict:
@@ -1119,18 +1163,7 @@ def vocoder_phase(root: Path, cfg: dict, fs2_ckpt: Path, card: str) -> dict:
     forwards = []
     hook = torch.nn.modules.module.register_module_forward_hook(
         lambda module, *_: forwards.append(1) if isinstance(module, HiFiGANGenerator) else None)
-    step_s = []
-    plain_step = loop.HiFiGANTrainer.train_step
-
-    def timed_step(self, batch, gan_on):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = plain_step(self, batch, gan_on)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        return out
-
-    loop.HiFiGANTrainer.train_step = timed_step
+    step_s: list = []
     # Every validation forward's MRF stages, on the weights being trained,
     # held to the plain version on the same input.
     val_stages: dict = {}
@@ -1138,9 +1171,10 @@ def vocoder_phase(root: Path, cfg: dict, fs2_ckpt: Path, card: str) -> dict:
     mrf_stage.launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
-        t0 = time.perf_counter()
-        trainer = train_spec_to_wav(config, log_every=1)  # the card, 'auto' precision
-        wall = time.perf_counter() - t0
+        with timed_steps(loop.HiFiGANTrainer, step_s):
+            t0 = time.perf_counter()
+            trainer = train_spec_to_wav(config, log_every=1)  # the card, 'auto' precision
+            wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches, val_forwards = mrf_stage.launches, len(forwards)
         resume = vocoder_config(cfg, root / "logs", "vocoder-resume",
@@ -1150,7 +1184,6 @@ def vocoder_phase(root: Path, cfg: dict, fs2_ckpt: Path, card: str) -> dict:
                                 finetune_checkpoint=str(trainer.ckpt_dir / "last.ckpt"))
         resumed = train_spec_to_wav(resume, log_every=1)
     finally:
-        loop.HiFiGANTrainer.train_step = plain_step
         hifigan.mrf_stage = mrf_stage
         hook.remove()
     training_launches = mrf_stage.launches
@@ -1210,7 +1243,334 @@ def vocoder_phase(root: Path, cfg: dict, fs2_ckpt: Path, card: str) -> dict:
     }
     print("vocoder train " + json.dumps(row), flush=True)
     return {"launches": training_launches + istft["launches"], "serving_launches": served["launches"],
-            "stages": val_rows + istft["stages"] + served["stages"], "row": row}
+            "stages": val_rows + istft["stages"] + served["stages"], "row": row,
+            "ckpt": trainer.ckpt_dir / "last.ckpt"}
+
+
+def phone_symbols() -> list:
+    """The phones the port's ``eng`` engine gives for the corpus's words and
+    the served texts: the inventory a phone-level English voice declares."""
+    from everyvoice_tpu_torch.onchip import CORPUS_WORDS, TEXTS
+    from everyvoice_tpu_torch.text.phonemizer import get_g2p_engine
+
+    engine = get_g2p_engine("eng")
+    words = list(CORPUS_WORDS) + [w for text in TEXTS for w in text.lower().split()]
+    return sorted({t for w in words for t in engine(w) if any(ch.isalpha() for ch in t)})
+
+
+def preprocess_phone_corpus(root: Path, card: str) -> dict:
+    """``Preprocessor.preprocess`` on the card over a seeded English corpus
+    given as characters only: G2P gives every row its phones, the pfs step
+    its (N_phones, 43) features; the log-mel kernel runs once per feature
+    batch, and every batch is then held to the plain version."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.onchip import write_corpus
+    from everyvoice_tpu_torch.ops.mel import log_mel
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    filelist, wavs, audio_s = write_corpus(root / "eng-corpus", PHONE_UTTERANCES, seed=6,
+                                           language="eng")
+    cfg = corpus_config(root / "eng", filelist, wavs)
+    cfg["text"]["symbols"]["eng_phones"] = phone_symbols()
+    pre = Preprocessor(cfg)
+    log_mel.launches = 0
+    log_mel.fft_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre.preprocess(to_process=PHONE_STEPS, cpus=min(8, os.cpu_count() or 1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fft_launches = log_mel.launches, log_mel.fft_launches
+    batches = len(pre.last_batch_shapes)
+    if launches == 0 or launches != batches or fft_launches != batches:
+        fail(f"log_mel launched {launches} times ({fft_launches} through the FFT "
+             f"kernel) for {batches} feature batches of the English corpus")
+    rows = generic_psv_filelist_reader(pre.save_dir / "filelist.psv")
+    if len(rows) != PHONE_UTTERANCES:
+        fail(f"the English corpus kept {len(rows)} of {PHONE_UTTERANCES} rows")
+    n_phones = 0
+    for row in rows:
+        item = pre.get_speaker_and_language(row)
+        phones = [t for t in pre.text_processor.split_tokens(row.get("phone_tokens") or "") if t]
+        if not phones:
+            fail(f"{row['basename']}: no phone_tokens")
+        pfs = np.load(pre.create_path(item, "pfs", "pfs.npy"))
+        frames = np.load(pre.create_path(item, "spec", pre._spec_filename()), mmap_mode="r").shape[1]
+        attn = np.load(pre.create_path(item, "attn", "phones-attn-prior.npy"))
+        if pfs.shape != (len(phones), 43) or not np.isfinite(pfs).all():
+            fail(f"{row['basename']}: pfs of {pfs.shape} for {len(phones)} phones")
+        if attn.shape != (frames, len(phones)):
+            fail(f"{row['basename']}: phone prior of {attn.shape} for {frames} frames")
+        n_phones += len(phones)
+    dropped = dict(pre.text_processor.missing_symbols)
+    if dropped:
+        fail(f"G2P gave phones the inventory lacks: {dropped}")
+    served, _ = check_served_features(pre)
+    row = {"utterances": len(rows), "audio_s": audio_s, "wall_s": wall,
+           "step_seconds": pre.last_step_seconds, "phones": n_phones, "batches": batches,
+           "launches": launches, "card": card}
+    print("phone preprocess " + json.dumps(row), flush=True)
+    return {"cfg": cfg, "save_dir": pre.save_dir, "launches": launches, "served": served,
+            "row": row}
+
+
+def gst_layout(dim: int = 256, n_mels: int = 80, heads: int = 4,
+               channels=(32, 32, 64, 64, 128, 128)) -> dict:
+    """The JAX package's ``gst`` subtree, leaf path → shape."""
+    out, c_in, m = {}, 1, n_mels
+    for i, c in enumerate(channels):
+        out.update({f"Conv_{i}/kernel": (3, 3, c_in, c), f"Conv_{i}/bias": (c,),
+                    f"GroupNorm_{i}/scale": (c,), f"GroupNorm_{i}/bias": (c,)})
+        c_in, m = c, -(-m // 2)
+    out.update({"Dense_0/kernel": (m * c_in, dim // 2), "Dense_0/bias": (dim // 2,),
+                "Dense_1/kernel": (dim, dim), "Dense_1/bias": (dim,), "style_tokens": (10, dim)})
+    attn = "MultiHeadDotProductAttention_0"
+    for name in ("query", "key", "value"):
+        out.update({f"{attn}/{name}/kernel": (dim, heads, dim // heads),
+                    f"{attn}/{name}/bias": (heads, dim // heads)})
+    out.update({f"{attn}/out/kernel": (heads, dim // heads, dim), f"{attn}/out/bias": (dim,)})
+    return out
+
+
+def flat_shapes(tree, prefix: str = "") -> dict:
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in flat_shapes(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tuple(np.shape(tree))}
+
+
+def train_phone_voice(root: Path, cfg: dict, voc_path: Path, card: str) -> dict:
+    """``train_text_to_spec`` at phone level with global style tokens, at
+    the default full width and depth, on the card: PHONE_TRAIN_STEPS steps
+    of batch 16 in bf16, validation at the last through the seeded HiFiGAN
+    V1 with every MRF stage held to the plain version; the losses finite, a
+    ``gst`` subtree of the JAX layout in every checkpoint."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.train import loop
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+    from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec
+
+    config = {**training_config(root, cfg, voc_path, "phones", max_steps=PHONE_TRAIN_STEPS,
+                                val_check_interval=PHONE_TRAIN_STEPS),
+              "model": PHONE_MODEL}
+    step_s: list = []
+    stages: dict = {}
+    hifigan.mrf_stage = checked_mrf_stages(stages)
+    mrf_stage.launches = 0
+    try:
+        with timed_steps(loop.FastSpeech2Trainer, step_s):
+            trainer = train_text_to_spec(config, log_every=1)
+    finally:
+        hifigan.mrf_stage = mrf_stage
+    launches = mrf_stage.launches
+    stages = [stages[k] for k in sorted(stages)]
+    if launches == 0 or sum(r["calls"] for r in stages) != launches:
+        fail(f"phone-level validation: {launches} mrf_stage launches, "
+             f"{sum(r['calls'] for r in stages)} held to the plain version")
+    if trainer.compute_dtype != "bfloat16" or trainer.model.gst is None:
+        fail(f"the phone-level trainer ran {trainer.compute_dtype}, "
+             f"GST {trainer.model.gst is not None}")
+    records = check_run(trainer, expect_tagged=1)
+    values = [v for r in records for k, v in r.items() if k.startswith("training/")]
+    if len(records) != PHONE_TRAIN_STEPS or not np.isfinite(values).all():
+        fail(f"phone-level run: {len(records)} logged steps, finite: {np.isfinite(values).all()}")
+    want = gst_layout(trainer.model.dim)
+    for path in trainer.ckpt_dir.glob("*.ckpt"):
+        got = flat_shapes(load_checkpoint(path)["state_dict"]["params"].get("gst", {}))
+        if got != want:
+            fail(f"{path.name}: the gst subtree is not in the JAX layout: {got}")
+    torch.cuda.synchronize()
+    row = {"steps": len(records), "median_step_ms": 1e3 * float(np.median(step_s[WARMUP_STEPS:])),
+           "loss_first5": float(np.mean([r["training/total"] for r in records[:5]])),
+           "loss_last5": float(np.mean([r["training/total"] for r in records[-5:]])),
+           "mrf_launches": launches, "card": card}
+    return {"ckpt": trainer.ckpt_dir / "last.ckpt", "config": config, "launches": launches,
+            "stages": stages, "row": row}
+
+
+def write_teacher_forced(fs2_ckpt: Path, config: dict, save_dir: Path) -> dict:
+    """``synthesize_teacher_forced_specs`` on every row of the corpus (the
+    finetune's training and validation rows) in float32 on the card: one
+    (80, frames) file per row, shaped like its ``spec/``."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.models.fs2.synthesize import synthesize_teacher_forced_specs
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    rows = generic_psv_filelist_reader(save_dir / "filelist.psv")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = synthesize_teacher_forced_specs(fs2_ckpt, rows, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if written != len(rows):
+        fail(f"teacher forcing wrote {written} specs for {len(rows)} rows")
+    for path in (save_dir / "spec").glob("*.npy"):
+        got = np.load(save_dir / "synthesized_spec" / path.name)
+        if got.shape != np.load(path, mmap_mode="r").shape or not np.isfinite(got).all():
+            fail(f"{path.name}: teacher-forced spec of {got.shape}")
+    row = {"rows": written, "wall_s": wall}
+    print("teacher forced " + json.dumps(row), flush=True)
+    return row
+
+
+def finetune_vocoder(root: Path, cfg: dict, v1_ckpt: Path) -> dict:
+    """``train_spec_to_wav`` with ``finetune: true`` on the teacher-forced
+    specs, from the vocoder phase's V1 checkpoint, FINETUNE_STEPS steps
+    with validation at the last, every MRF stage held to the plain
+    version; then the generator exported for serving."""
+    from everyvoice_tpu_torch.models.fs2.synthesize import export_generator
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.onchip import vocoder_config
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.train.spec_to_wav import train_spec_to_wav
+
+    start = VOCODER_STEPS
+    config = vocoder_config(cfg, root / "logs", "finetune", max_steps=start + FINETUNE_STEPS,
+                            val_check_interval=FINETUNE_STEPS,
+                            generator_warmup_steps=VOCODER_WARMUP, save_top_k_ckpts=1,
+                            finetune=True, finetune_checkpoint=str(v1_ckpt))
+    stages: dict = {}
+    hifigan.mrf_stage = checked_mrf_stages(stages)
+    mrf_stage.launches = 0
+    try:
+        t0 = time.perf_counter()
+        trainer = train_spec_to_wav(config, log_every=1)
+        wall = time.perf_counter() - t0
+    finally:
+        hifigan.mrf_stage = mrf_stage
+    launches = mrf_stage.launches
+    stages = [stages[k] for k in sorted(stages)]
+    if not trainer.dataset.finetune or trainer.resumed != "full":
+        fail(f"finetune: dataset finetune={trainer.dataset.finetune}, resume {trainer.resumed}")
+    check_vocoder_run(trainer, list(range(start + 1, start + FINETUNE_STEPS + 1)),
+                      start - VOCODER_WARMUP + FINETUNE_STEPS, 1)
+    if launches == 0 or sum(r["calls"] for r in stages) != launches:
+        fail(f"finetune: {launches} mrf_stage launches, "
+             f"{sum(r['calls'] for r in stages)} held to the plain version")
+    exported = export_generator(trainer.ckpt_dir / "last.ckpt", root / "finetuned-generator.ckpt")
+    row = {"steps": FINETUNE_STEPS, "wall_s": wall, "mrf_launches": launches,
+           "train_rows": len(trainer.dataset), "validation_rows": len(trainer.val_dataset)}
+    print("vocoder finetune " + json.dumps(row), flush=True)
+    return {"generator": exported, "launches": launches, "stages": stages, "row": row}
+
+
+def check_text_outputs(res: dict, stem_files: dict, hop_s: float, what: str) -> None:
+    """A result's TextGrid (one interval a token, ``xmax`` the summed used
+    durations in seconds) and read-along XML (parses)."""
+    import xml.etree.ElementTree as ET
+
+    tokens = sum(len(ids) for ids in res["tokens"])
+    seconds = sum(float(sum(d)) for d in res["durations"]) * hop_s
+    grid = stem_files[".TextGrid"].read_text(encoding="utf8")
+    intervals = grid.count("intervals [")
+    xmax = float(next(line for line in grid.splitlines() if line.startswith("xmax = ")).split("=")[1])
+    if intervals != tokens or abs(xmax - seconds) > 1e-5:
+        fail(f"{what}: TextGrid of {intervals} intervals to {xmax} s for {tokens} tokens "
+             f"and {seconds} s")
+    words = ET.parse(stem_files[".readalong"]).getroot().iter("w")
+    if sum(1 for _ in words) != tokens:
+        fail(f"{what}: the read-along XML does not hold one <w> a token")
+
+
+def serve_phone_voice(fs2_ckpt: Path, generator: Path, style: Path, out_dir: Path,
+                      char_requests: list) -> dict:
+    """``onchip.py``'s 1-, 4- and 16-text requests in English through
+    ``Synthesizer`` from the phone-level GST checkpoint and the finetuned
+    generator, conditioned on a corpus wav, writing all five output
+    formats, each checked; the walls beside phase 4's. Then the same
+    requests again, every MRF stage they run held to the plain version."""
+    import torch
+
+    from everyvoice_tpu_torch.models.fs2.synthesize import OUTPUT_FORMATS, Synthesizer
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.onchip import REQUESTS
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+
+    synth = Synthesizer(fs2_ckpt, generator)
+    if synth.device.type != "cuda" or synth.model.gst is None:
+        fail(f"phone-level Synthesizer on {synth.device}, GST {synth.model.gst is not None}")
+    options = {"language": "eng", "style_reference": style}
+    synth.synthesize(REQUESTS[0], **options)  # warm-up
+    hop = synth._samples_per_frame()
+    hop_s = hop / synth.config["preprocessing"]["audio"]["output_sampling_rate"]
+    rows = []
+    mrf_stage.launches = 0
+    for i, texts in enumerate(REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = synth.synthesize(texts, **options)
+        wall = time.perf_counter() - t0
+        names = [f"r{i}t{j}" for j in range(len(texts))]
+        written = synth.write_outputs(results, out_dir, OUTPUT_FORMATS, language="eng",
+                                      basenames=names)
+        if len(written) != len(OUTPUT_FORMATS) * len(texts):
+            fail(f"phone-level request {i}: {len(written)} files for {len(texts)} texts")
+        for name, res in zip(names, results):
+            check_wav(res, hop, f"phone-level request {i}")
+            files = {p.suffix: p for p in written if p.name.startswith(f"{name}--")}
+            check_text_outputs(res, files, hop_s, f"phone-level request {i}")
+        rows.append({"texts": len(texts), "chunks": sum(len(r["tokens"]) for r in results),
+                     "phones": sum(len(ids) for r in results for ids in r["tokens"]),
+                     "frames": sum(r["mel"].shape[0] for r in results),
+                     "wall_s": wall, "character_level_wall_s": char_requests[i]["wall_s"]})
+    launches = mrf_stage.launches
+    seen: dict = {}
+    hifigan.mrf_stage = checked_mrf_stages(seen)
+    try:
+        for texts in REQUESTS:
+            synth.synthesize(texts, **options)
+    finally:
+        hifigan.mrf_stage = mrf_stage
+    stages = [seen[k] for k in sorted(seen)]
+    if launches == 0 or sum(r["calls"] for r in stages) != launches:
+        fail(f"phone-level serving: {launches} mrf_stage launches, "
+             f"{sum(r['calls'] for r in stages)} held to the plain version")
+    t0 = time.perf_counter()
+    synth.load_style_reference(style)
+    torch.cuda.synchronize()
+    row = {"requests": rows, "mrf_launches": launches, "stages": stages,
+           "load_style_reference_s": time.perf_counter() - t0}
+    print("phone-level serving " + json.dumps(row), flush=True)
+    return {"launches": launches, "stages": stages, "row": row}
+
+
+def phone_voice_phase(root: Path, voc_path: Path, v1_ckpt: Path, char_step_ms: float,
+                      char_requests: list, card: str) -> dict:
+    """A phone-level English voice with global style tokens, end to end on
+    the card: preprocess from characters through G2P and phonological
+    features, train, write teacher-forced specs, finetune the vocoder on
+    them, serve with a style reference into every output format, and hold
+    one float32 synthesis to the CPU's."""
+    t0 = time.perf_counter()
+    prep = preprocess_phone_corpus(root, card)
+    trained = train_phone_voice(root, prep["cfg"], voc_path, card)
+    trained["row"]["character_level_median_step_ms"] = char_step_ms
+    print("phone train " + json.dumps(trained["row"]), flush=True)
+    teacher = write_teacher_forced(trained["ckpt"], trained["config"], prep["save_dir"])
+    tuned = finetune_vocoder(root, prep["cfg"], v1_ckpt)
+    style = sorted((prep["save_dir"] / "audio").glob("*.wav"))[0]
+    served = serve_phone_voice(trained["ckpt"], tuned["generator"], style, root / "phone-out",
+                               char_requests)
+    reference = reference_check(trained["ckpt"], tuned["generator"], language="eng",
+                                style_reference=style)
+    print("phone voice " + json.dumps({
+        "wall_s": time.perf_counter() - t0, "validation_stages": trained["stages"],
+        "finetune_stages": tuned["stages"]}), flush=True)
+    return {"mel_launches": prep["launches"], "served_mel": prep["served"],
+            "mrf_launches": trained["launches"] + tuned["launches"] + served["launches"],
+            "stages": trained["stages"] + tuned["stages"] + served["stages"],
+            "row": {"preprocess": prep["row"], "train": trained["row"], "teacher_forced": teacher,
+                    "finetune": tuned["row"], "serving": served["row"], "reference": reference}}
 
 
 def timed_build(name: str) -> tuple:
@@ -1266,11 +1626,14 @@ def main() -> int:
         features_card_vs_cpu(prep["cfg"], batches[max(batches)])
 
         trained = train_phase(tmp, prep["cfg"], voc_path, card)
-        training_launches = trained["launches"]
+        training_launches, training_stages = trained["launches"], trained["stages"]
+        char_step_ms = trained["row"]["median_step_ms"]
         fs2_ckpt = trained["trainer"].ckpt_dir / "last.ckpt"
         synthesize_trained(fs2_ckpt, voc_path, tmp / "trained")
         del trained
         vocoder = vocoder_phase(tmp, prep["cfg"], fs2_ckpt, card)
+        phone = phone_voice_phase(tmp, voc_path, vocoder["ckpt"], char_step_ms,
+                                  served["requests"], card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -1279,14 +1642,16 @@ def main() -> int:
         "source": "everyvoice_tpu_torch/ops/csrc/mrf.cu",
         "replaces": "everyvoice_tpu/ops/mrf_pallas.py:137",
         "launches": (served["launches"] + training_launches + vocoder["launches"]
-                     + vocoder["serving_launches"]),
+                     + vocoder["serving_launches"] + phone["mrf_launches"]),
         "serving_launches": served["launches"],
         "training_launches": training_launches,
         "vocoder_training_launches": vocoder["launches"],
         "trained_vocoder_serving_launches": vocoder["serving_launches"],
+        "phone_voice_launches": phone["mrf_launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
-        "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + vocoder["stages"]),
+        "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + training_stages
+                           + vocoder["stages"] + phone["stages"]),
         "ms": sum(r["kernel_ms"] for r in bf16),
         "plain_ms": sum(r["plain_ms"] for r in bf16),
         "bound_ms": sum(r["bound_ms"] for r in bf16),
@@ -1298,10 +1663,11 @@ def main() -> int:
         "route": "cuda",
         "source": "everyvoice_tpu_torch/ops/csrc/mel.cu",
         "replaces": "everyvoice_tpu/ops/mel_pallas.py:67",
-        "launches": prep["launches"],
-        "fft_launches": prep["fft_launches"],
+        "launches": prep["launches"] + phone["mel_launches"],
+        "fft_launches": prep["fft_launches"] + phone["mel_launches"],
+        "phone_voice_launches": phone["mel_launches"],
         "design": "shared-memory radix-2 Stockham FFT (n_fft a power of two)",
-        "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel),
+        "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel + phone["served_mel"]),
         "ms": sum(r["kernel_ms"] for r in mel_rows),
         "plain_ms": sum(r["plain_ms"] for r in mel_rows),
         "bound_ms": sum(r["bound_ms"] for r in mel_rows),

@@ -11,17 +11,21 @@ the tables below pair each leaf with a torch parameter and a layout change:
 - Conv kernel (k, in/groups, out) ↔ Conv1d weight (out, in/groups, k);
 - ConvTranspose kernel (k, in, out) ↔ torch's (in, out, k) with the taps
   reversed (flax does not flip the kernel; torch's transposed conv does);
-- the MPD's 2-D Conv kernel (k, 1, in, out) ↔ Conv2d weight (out, in, k, 1);
+- a 2-D Conv kernel (kh, kw, in, out) ↔ Conv2d weight (out, in, kh, kw) (the
+  MPD's (k, 1) kernels, GST's 3x3 ones);
 - attention query/key/value kernels (dim, heads, head_dim) and biases
   (heads, head_dim) ↔ Linear (heads·head_dim, dim) and (heads·head_dim,);
   the out kernel (heads, head_dim, dim) ↔ Linear (dim, heads·head_dim).
 
 ``flax_to_torch`` consumes every leaf and raises on a leaf it did not use or
 a torch parameter it did not fill. FastSpeech2's ``alignment`` subtree (the
-alignment encoder, trained with the model) maps both ways like the rest. A
-tree that has no ``alignment`` subtree at all (the JAX package initialises
-one only when its ``init`` sees a mel) leaves the model's own alignment
-weights in place, and ``flax_to_torch`` reports the flax paths it lacked.
+alignment encoder, trained with the model) and ``gst`` subtree (the global
+style tokens) map both ways like the rest, as does ``pfs_proj``, the
+phonological-feature projection that replaces ``symbol_embed``. A tree that
+has no ``alignment`` or ``gst`` subtree at all (the JAX package initialises
+them only when its ``init`` sees a mel) leaves the model's own weights of
+that subtree in place, and ``flax_to_torch`` reports the flax paths it
+lacked.
 ``torch_to_flax`` is the inverse; it lets a machine without JAX write
 checkpoints in the JAX package's layout. Both also map an optimizer's
 moments, which have the parameters' shapes.
@@ -48,9 +52,13 @@ from everyvoice_tpu_torch.models.hifigan.model import (
     MultiScaleDiscriminator,
     SpectralNormConv1d,
 )
-from everyvoice_tpu_torch.models.layers import ConformerStack, VariancePredictor
+from everyvoice_tpu_torch.models.layers import (
+    ConformerStack,
+    GlobalStyleTokens,
+    VariancePredictor,
+)
 
-OPTIONAL_SUBTREES = ("alignment",)
+OPTIONAL_SUBTREES = ("alignment", "gst")
 
 
 # Each kind: (flax → torch, torch → flax given the flax shape's head count).
@@ -109,6 +117,15 @@ def _embed(fpath, tkey):
     return [(fpath + ("embedding",), f"{tkey}.weight", "plain")]
 
 
+def _mha(fpath, tkey):
+    out = []
+    for name in ("query", "key", "value"):
+        out += [(fpath + (name, "kernel"), f"{tkey}.{name}.weight", "mha_in"),
+                (fpath + (name, "bias"), f"{tkey}.{name}.bias", "mha_in_bias")]
+    return out + [(fpath + ("out", "kernel"), f"{tkey}.out.weight", "mha_out"),
+                  (fpath + ("out", "bias"), f"{tkey}.out.bias", "plain")]
+
+
 def _conformer(fpath, tkey, stack: ConformerStack):
     out = []
     for i in range(len(stack.blocks)):
@@ -120,12 +137,7 @@ def _conformer(fpath, tkey, stack: ConformerStack):
             out += _dense(g + ("Dense_1",), f"{t}.{ff}.fc2")
         out += _norm(f + ("LayerNorm_0",), f"{t}.attn_norm")
         out += _norm(f + ("LayerNorm_1",), f"{t}.final_norm")
-        a = f + ("MultiHeadDotProductAttention_0",)
-        for name in ("query", "key", "value"):
-            out += [(a + (name, "kernel"), f"{t}.attn.{name}.weight", "mha_in"),
-                    (a + (name, "bias"), f"{t}.attn.{name}.bias", "mha_in_bias")]
-        out += [(a + ("out", "kernel"), f"{t}.attn.out.weight", "mha_out"),
-                (a + ("out", "bias"), f"{t}.attn.out.bias", "plain")]
+        out += _mha(f + ("MultiHeadDotProductAttention_0",), f"{t}.attn")
         c = f + ("ConformerConvModule_0",)
         out += _norm(c + ("LayerNorm_0",), f"{t}.conv.norm")
         out += _dense(c + ("Dense_0",), f"{t}.conv.pointwise_in")
@@ -147,15 +159,32 @@ def _predictor(fpath, tkey, vp: VariancePredictor):
     return out + _dense(fpath + ("Dense_0",), f"{tkey}.head")
 
 
+def _gst(fpath, tkey, gst: GlobalStyleTokens):
+    out = []
+    for i in range(len(gst.convs)):
+        out += [(fpath + (f"Conv_{i}", "kernel"), f"{tkey}.convs.{i}.weight", "conv2d"),
+                (fpath + (f"Conv_{i}", "bias"), f"{tkey}.convs.{i}.bias", "plain")]
+        out += _norm(fpath + (f"GroupNorm_{i}",), f"{tkey}.norms.{i}")
+    out += _dense(fpath + ("Dense_0",), f"{tkey}.proj")
+    out += _dense(fpath + ("Dense_1",), f"{tkey}.query")
+    out += [(fpath + ("style_tokens",), f"{tkey}.style_tokens", "plain")]
+    return out + _mha(fpath + ("MultiHeadDotProductAttention_0",), f"{tkey}.attn")
+
+
 def _fs2_table(model: FastSpeech2) -> list:
     p = ("params",)
-    out = _embed(p + ("symbol_embed",), "symbol_embed")
+    if model.pfs_proj is not None:
+        out = _dense(p + ("pfs_proj",), "pfs_proj")
+    else:
+        out = _embed(p + ("symbol_embed",), "symbol_embed")
     out += _conformer(p + ("encoder",), "encoder", model.encoder)
     out += _conformer(p + ("decoder",), "decoder", model.decoder)
     if model.speaker_embed is not None:
         out += _embed(p + ("speaker_embed",), "speaker_embed")
     if model.language_embed is not None:
         out += _embed(p + ("language_embed",), "language_embed")
+    if model.gst is not None:
+        out += _gst(p + ("gst",), "gst", model.gst)
     for name in ("duration", "pitch", "energy"):
         out += _predictor(p + (f"{name}_predictor",), f"{name}_predictor",
                           getattr(model, f"{name}_predictor"))
@@ -283,6 +312,8 @@ def torch_to_flax(state_dict: dict, model) -> dict:
         for stack in ("encoder", "decoder"):
             for i, block in enumerate(getattr(model, stack).blocks):
                 heads[f"{stack}.blocks.{i}."] = block.attn.heads
+        if model.gst is not None:
+            heads["gst.attn."] = model.gst.attn.heads
     tree: dict = {}
     table = _table(model)
     missing = sorted(set(state_dict) - {t for _, t, _ in table})

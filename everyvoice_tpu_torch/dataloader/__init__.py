@@ -44,6 +44,21 @@ def _n_batches(n: int, batch_size: int, drop_last: bool) -> int:
     return math.ceil(n / batch_size)
 
 
+def reject_phonological_features(config: dict, who: str) -> None:
+    """Raise for a ``phonological_features`` config. The JAX package's
+    ``FastSpeech2Dataset._token_column`` and ``Synthesizer.encode`` give
+    that level ``phone_tokens`` ids, which its model's ``pfs_proj`` (a
+    Dense over (B, N, 43) features) cannot take, so the level never trained
+    or served end to end there; the port does not copy that call."""
+    if config["model"]["target_text_representation_level"] == "phonological_features":
+        raise ValueError(
+            f"{who}: target_text_representation_level 'phonological_features' is not "
+            "supported end to end. The model's pfs_proj takes (N, 43) phonological "
+            "features, but the JAX package's dataset and Synthesizer feed it phone "
+            "ids, so no such checkpoint exists to match; use 'phones'."
+        )
+
+
 def imbalanced_sample_weights(labels: Sequence[str]) -> np.ndarray:
     """Inverse-label-frequency weights for oversampling under-represented
     speakers and languages."""
@@ -61,6 +76,7 @@ class FastSpeech2Dataset:
 
     def __init__(self, filelist: list, config: dict, lang2id: dict, speaker2id: dict,
                  text_processor: Optional[TextProcessor] = None):
+        reject_phonological_features(config, "FastSpeech2Dataset")
         self.config = config
         self.save_dir = Path(config["preprocessing"]["save_dir"])
         self.audio_config = config["preprocessing"]["audio"]

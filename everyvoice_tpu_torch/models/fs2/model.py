@@ -13,8 +13,13 @@ attends from the mel to the text; without given durations its Viterbi path,
 with no gradient, gives the durations used and their targets. Pitch and
 energy targets are averaged into phones (by the hard alignment, else by the
 durations) at phone level, and embed in place of the predictions; the frame
-mask comes from ``mel_lengths``. Dropout acts in training mode only. Global
-style tokens and phonological-feature input are a later slice of the port.
+mask comes from ``mel_lengths``. Dropout acts in training mode only.
+
+With ``target_text_representation_level: phonological_features`` the text
+is a (B, N, 43) float tensor projected by ``pfs_proj`` in place of the
+symbol embedding. With ``use_global_style_token_module`` the GST module
+conditions the encoder output on ``style_reference``, else on the target
+``mel``, and is skipped when neither is given, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from everyvoice_tpu_torch.models.fs2.alignment import (
 )
 from everyvoice_tpu_torch.models.layers import (
     ConformerStack,
+    GlobalStyleTokens,
     Postnet,
     VariancePredictor,
     lengths_to_mask,
@@ -73,6 +79,9 @@ class FastSpeech2(nn.Module):
         max_frames: int = 1000,
         variance_range: float = 6.0,
         compute_dtype: str = "float32",
+        use_phonological_feats: bool = False,
+        pfs_dim: int = 43,
+        use_gst: bool = False,
     ):
         super().__init__()
         dt = torch_dtype(compute_dtype)
@@ -82,11 +91,13 @@ class FastSpeech2(nn.Module):
         self.energy_level = energy_level
         self.max_frames = max_frames
         self.variance_range = variance_range
-        self.symbol_embed = nn.Embedding(n_symbols, dim)
+        self.symbol_embed = None if use_phonological_feats else nn.Embedding(n_symbols, dim)
+        self.pfs_proj = nn.Linear(pfs_dim, dim) if use_phonological_feats else None
         self.encoder = ConformerStack(enc_layers, dim, enc_heads, enc_ff_dim, enc_kernel, dt,
                                       enc_dropout)
         self.speaker_embed = nn.Embedding(n_speakers, dim) if multispeaker else None
         self.language_embed = nn.Embedding(n_langs, dim) if multilingual else None
+        self.gst = GlobalStyleTokens(n_mels, token_dim=dim, dtype=dt) if use_gst else None
         self.alignment = AlignmentEncoder(dim, n_mels) if learn_alignment else None
 
         def predictor():
@@ -108,16 +119,6 @@ class FastSpeech2(nn.Module):
         """Build from a FastSpeech2 config dict (defaults filled in by
         ``everyvoice_tpu_torch.config.fs2_config``)."""
         m = config["model"]
-        if m["target_text_representation_level"] == "phonological_features":
-            raise NotImplementedError(
-                "phonological-feature input is not ported yet; it comes with "
-                "the port's text front-end slice"
-            )
-        if m["use_global_style_token_module"]:
-            raise NotImplementedError(
-                "global style tokens (GST) are not ported yet; they come with "
-                "the port's style-reference slice"
-            )
         enc, dec = m["encoder"], m["decoder"]
         vp = m["variance_predictors"]
         return cls(
@@ -139,6 +140,8 @@ class FastSpeech2(nn.Module):
             n_speakers=max(n_speakers, 1), n_langs=max(n_langs, 1),
             max_frames=m["max_length"],
             compute_dtype=compute_dtype,
+            use_phonological_feats=m["target_text_representation_level"] == "phonological_features",
+            use_gst=m["use_global_style_token_module"],
         )
 
     def _bin_embed(self, values, mask, embed: nn.Embedding):
@@ -153,7 +156,7 @@ class FastSpeech2(nn.Module):
     @no_tf32()
     def forward(
         self,
-        text: torch.Tensor,                          # (B, N) int ids
+        text: torch.Tensor,                          # (B, N) int ids or (B, N, 43) pfs
         text_lengths: torch.Tensor,                  # (B,)
         mel: Optional[torch.Tensor] = None,          # (B, T, n_mels) target
         mel_lengths: Optional[torch.Tensor] = None,  # (B,)
@@ -163,6 +166,7 @@ class FastSpeech2(nn.Module):
         energy: Optional[torch.Tensor] = None,
         speaker_id: Optional[torch.Tensor] = None,
         language_id: Optional[torch.Tensor] = None,
+        style_reference: Optional[torch.Tensor] = None,  # (B, T, n_mels) for GST
         duration_control: float = 1.0,
         teacher_forcing: bool = False,
     ) -> dict:
@@ -170,7 +174,11 @@ class FastSpeech2(nn.Module):
         src_mask = lengths_to_mask(text_lengths, n_text)
         zero = torch.zeros((), device=text.device)
 
-        x = torch.where(src_mask[..., None], self.symbol_embed(text.long()), zero)
+        if self.pfs_proj is not None:
+            emb = self.pfs_proj(text.float())
+        else:
+            emb = self.symbol_embed(text.long())
+        x = torch.where(src_mask[..., None], emb, zero)
         x = self.encoder(x, src_mask)
         if self.speaker_embed is not None:
             sid = speaker_id if speaker_id is not None else torch.zeros_like(text_lengths)
@@ -178,6 +186,10 @@ class FastSpeech2(nn.Module):
         if self.language_embed is not None:
             lid = language_id if language_id is not None else torch.zeros_like(text_lengths)
             x = x + self.language_embed(lid.long())[:, None, :]
+        if self.gst is not None:
+            ref = style_reference if style_reference is not None else mel
+            if ref is not None:
+                x = x + self.gst(ref)[:, None, :]
         x = torch.where(src_mask[..., None], x, zero)
         out: dict = {"encoder_output": x, "src_mask": src_mask}
 

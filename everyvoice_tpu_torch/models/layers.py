@@ -1,5 +1,5 @@
 """Shared building blocks of FastSpeech2 in PyTorch: Conformer, variance
-predictors, length regulation, postnet (counterpart of
+predictors, length regulation, postnet, global style tokens (counterpart of
 everyvoice_tpu/models/layers.py).
 
 Activations are (B, T, C), as in the JAX package. Numerics follow flax:
@@ -145,11 +145,13 @@ class ConformerConvModule(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` self-attention: per-head query,
-    key and value projections (flax kernels (dim, heads, head_dim)), an
-    output projection (flax kernel (heads, head_dim, dim)), queries scaled by
-    1/sqrt(head_dim) before the product, softmax taken in float32, and the
-    attention weights' dropout mask shared over batch and heads."""
+    """flax ``MultiHeadDotProductAttention``: per-head query, key and value
+    projections (flax kernels (dim, heads, head_dim)), an output projection
+    (flax kernel (heads, head_dim, dim)), queries scaled by 1/sqrt(head_dim)
+    before the product, softmax taken in float32, and the attention
+    weights' dropout mask shared over batch and heads. Self-attention over
+    ``x`` under a (B, T) ``mask``, or, given ``kv``, unmasked
+    cross-attention from ``x`` to ``kv``."""
 
     def __init__(self, dim: int, heads: int, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0):
@@ -162,17 +164,20 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask=None, kv=None):
+        kv = x if kv is None else kv
         b, t, dim = x.shape
         h = self.heads
-        q, k, v = (
-            linear(x, layer, self.dtype).view(b, t, h, dim // h).transpose(1, 2)
-            for layer in (self.query, self.key, self.value)
-        )
+
+        def heads(inputs, layer):
+            return linear(inputs, layer, self.dtype).view(b, inputs.shape[1], h, dim // h).transpose(1, 2)
+
+        q, k, v = heads(x, self.query), heads(kv, self.key), heads(kv, self.value)
         q = q / torch.sqrt(torch.tensor(dim // h, dtype=q.dtype))
-        logits = q @ k.transpose(-1, -2)  # (B, H, T, T)
-        pair = mask[:, None, None, :] & mask[:, None, :, None]
-        logits = logits.masked_fill(~pair, torch.finfo(logits.dtype).min)
+        logits = q @ k.transpose(-1, -2)  # (B, H, T, S)
+        if mask is not None:
+            pair = mask[:, None, None, :] & mask[:, None, :, None]
+            logits = logits.masked_fill(~pair, torch.finfo(logits.dtype).min)
         weights = self.drop(torch.softmax(logits.float(), dim=-1).to(self.dtype))
         y = (weights @ v).transpose(1, 2).reshape(b, t, dim)
         return linear(y, self.out, self.dtype)
@@ -294,3 +299,59 @@ class Postnet(nn.Module):
         x = self.drop(conv1d_same(x, self.convs[-1], self.dtype))
         out = mel + x.float()
         return torch.where(mask[..., None], out, torch.zeros((), device=out.device))
+
+
+def conv2d_same_stride2(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Conv(kernel_size=(3, 3), strides=(2, 2), padding="SAME")``
+    on NCHW: each axis of length n gives ceil(n/2) outputs and is padded by
+    (k - 2 + n % 2) in total, the smaller half first — (0, 1) on an even
+    axis, (1, 1) on an odd one, where torch's ``padding=1`` is always
+    (1, 1)."""
+    k = conv.kernel_size[0]
+
+    def pads(n):
+        total = max((-(-n // 2) - 1) * 2 + k - n, 0)
+        return total // 2, total - total // 2
+
+    v = F.pad(x.to(dtype), (*pads(x.shape[3]), *pads(x.shape[2])))
+    return F.conv2d(v, conv.weight.to(dtype), conv.bias.to(dtype), stride=2)
+
+
+class GlobalStyleTokens(nn.Module):
+    """GST: a reference encoder over a (B, T, n_mels) mel attends, with one
+    query, over a bank of ``n_tokens`` learned style tokens; returns the
+    (B, token_dim) style embedding. Six 3x3 stride-2 convs ("SAME") with
+    GroupNorm(1) and ReLU run in ``dtype`` on the mel as an image (T, M,
+    1); their (B, T', M', C) output — channels last, as flax lays it out —
+    is flattened to (B, T', M'·C), projected to token_dim/2, pooled by the
+    mean and the max over all T' frames (padded ones included, unmasked),
+    and projected to the query. The denses and the attention run in
+    float32."""
+
+    def __init__(self, n_mels: int, token_dim: int = 256, n_tokens: int = 10, heads: int = 4,
+                 ref_channels=(32, 32, 64, 64, 128, 128), dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        chans = (1,) + tuple(ref_channels)
+        self.convs = nn.ModuleList(nn.Conv2d(chans[i], chans[i + 1], 3) for i in range(len(ref_channels)))
+        self.norms = nn.ModuleList(nn.GroupNorm(1, c, eps=NORM_EPS) for c in ref_channels)
+        m = n_mels
+        for _ in ref_channels:
+            m = -(-m // 2)
+        self.proj = nn.Linear(m * ref_channels[-1], token_dim // 2)
+        self.query = nn.Linear(token_dim, token_dim)
+        self.style_tokens = nn.Parameter(torch.empty(n_tokens, token_dim))
+        self.attn = MultiHeadAttention(token_dim, heads)
+
+    def forward(self, ref_mel: torch.Tensor) -> torch.Tensor:
+        x = ref_mel[:, None]  # (B, 1, T, M)
+        for conv, norm in zip(self.convs, self.norms):
+            x = conv2d_same_stride2(x, conv, self.dtype)
+            x = F.relu(F.group_norm(x.float(), 1, norm.weight, norm.bias, NORM_EPS).to(self.dtype))
+        b, c, t, m = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, t, m * c).float()
+        x = linear(x, self.proj, torch.float32)
+        summary = torch.cat([x.mean(dim=1), x.amax(dim=1)], dim=-1)
+        query = linear(summary, self.query, torch.float32)[:, None, :]
+        keys = torch.tanh(self.style_tokens)[None].expand(b, -1, -1)
+        return self.attn(query, kv=keys)[:, 0, :]

@@ -104,12 +104,14 @@ CORPUS_WORDS = (
 ).split()
 
 
-def write_corpus(root: Path, n_utts: int, seed: int = 0, sr: int = 22050) -> tuple:
+def write_corpus(root: Path, n_utts: int, seed: int = 0, sr: int = 22050,
+                 language: str = "default") -> tuple:
     """(filelist path, wav directory, audio seconds) of a seeded corpus of
     ``n_utts`` 16-bit utterances of 3–10 s: a noise-modulated tone gliding
     around 110 Hz, loud enough to pass the −36 LUFS gate, with eight words of
-    text each. The filelist's columns are basename|characters|speaker|language,
-    the ones the audio step keeps."""
+    text each, all in ``language`` (a language with a G2P engine, such as
+    ``eng``, gets phones from it). The filelist's columns are
+    basename|characters|speaker|language, the ones the audio step keeps."""
     rng = np.random.default_rng(seed)
     wav_dir = root / "wavs"
     wav_dir.mkdir(parents=True, exist_ok=True)
@@ -125,7 +127,7 @@ def write_corpus(root: Path, n_utts: int, seed: int = 0, sr: int = 22050) -> tup
         envelope = 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 1.3 * t))
         write_wav(wav_dir / f"utt{i:05d}.wav", ((tone + noise) * envelope).astype(np.float32), sr)
         text = " ".join(CORPUS_WORDS[j] for j in rng.integers(0, len(CORPUS_WORDS), 8))
-        rows.append(f"utt{i:05d}|{text}|default|default")
+        rows.append(f"utt{i:05d}|{text}|default|{language}")
     filelist = root / "filelist.psv"
     filelist.write_text("\n".join(rows) + "\n", encoding="utf8")
     return filelist, wav_dir, total_seconds

@@ -9,6 +9,10 @@ Steps, in order, as the JAX package runs them:
    to a whole number of hops and write 16-bit wavs; write ``summary.txt``,
    the missing and multichannel reports and the processed filelist;
 2. **text**: normalize and tokenize the characters and declared phones;
+   an ``arpabet`` column becomes IPA phones, and a row with characters but
+   no phones, in a language with a G2P engine, gets its phones from G2P;
+   **pfs** does the same and writes each row's (N_phones, 43) phonological
+   features;
 3. **spec / energy / pitch** (the card): sort utterances by length, pad
    each batch of 16 to a power-of-two multiple of ``BUCKET_FRAMES`` hops,
    ship it as int16 PCM and compute the log-mel (the hand-written kernel
@@ -20,10 +24,9 @@ Steps, in order, as the JAX package runs them:
    then the seeded train/validation split and the config lock.
 
 Artifact names and layout are the JAX package's:
-``{save_dir}/{audio,spec,attn,energy,pitch}/basename--speaker--language--<name>``.
+``{save_dir}/{audio,spec,attn,energy,pitch,pfs}/basename--speaker--language--<name>``.
 Not ported yet (they raise ``NotImplementedError``): the device audio path
-(``device_audio=True``), the ``pfs`` step, G2P from characters, arpabet
-input and ``preprocess_ood``.
+(``device_audio=True``) and ``preprocess_ood``.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ from everyvoice_tpu_torch.preprocessor.helpers import (
     write_config_lock,
 )
 from everyvoice_tpu_torch.text import CHARACTER_JOINER, JOINER_SUBSTITUTION, TextProcessor
+from everyvoice_tpu_torch.text.arpabet import arpabet_to_ipa
+from everyvoice_tpu_torch.text.phonemizer import AVAILABLE_G2P_ENGINES
 from everyvoice_tpu_torch.utils import (
     generic_psv_filelist_reader,
     n_times,
@@ -77,13 +82,6 @@ FILENAME_SEP = "--"
 # the F0 voicing gate compares each frame with its row's peak energy.
 BUCKET_FRAMES = 128
 BATCH_SIZE = 16
-# Languages for which the JAX package runs G2P on a characters-only
-# filelist (the keys of everyvoice_tpu/text/phonemizer.py's registry).
-G2P_LANGUAGES = frozenset((
-    "cat", "ces", "dan", "deu", "ell", "eng", "est", "eus", "fin", "fra",
-    "hrv", "hun", "ind", "ita", "pol", "por", "ron", "rus", "spa", "swa",
-    "swe", "tur", "ukr", "und",
-))
 LATER_SLICE = "is not ported yet; it comes with a later slice of the port"
 # Columns of a source filelist that survive the audio step.
 KEEP_COLUMNS = (
@@ -119,7 +117,6 @@ class Preprocessor:
         self.sampling_rate_change = self.output_sampling_rate // self.input_sampling_rate
         self.output_hop_size = self.sampling_rate_change * a["fft_hop_size"]
         self.text_processor = TextProcessor(self.config["text"])
-        self.g2p_languages = G2P_LANGUAGES | set(self.config["text"]["g2p_engines"])
 
     # ------------------------------------------------------------------
     # paths
@@ -307,13 +304,12 @@ class Preprocessor:
     # text
 
     def process_text(self, item: dict, use_pfs: bool = False):
-        """Tokenize the characters and the declared phones of one row.
-        Returns (character_tokens | None, phone_tokens | None, None)."""
-        if use_pfs:
-            raise NotImplementedError(f"the 'pfs' step (phonological features) {LATER_SLICE}")
-        if item.get("arpabet"):
-            raise NotImplementedError(f"arpabet input (converted to IPA by G2P) {LATER_SLICE}")
-        characters = phones = None
+        """Tokenize the characters and the phones of one row: declared
+        phones, else its ``arpabet`` converted to IPA, else G2P from the
+        characters when the language has an engine. Returns
+        (character_tokens | None, phone_tokens | None, (N, 43) features |
+        None); the features only with ``use_pfs`` and phones."""
+        characters = phones = pfs = None
         dataset_label = item.get("label")
         lang = item.get("language") or None
 
@@ -322,21 +318,25 @@ class Preprocessor:
                 t.replace(CHARACTER_JOINER, JOINER_SUBSTITUTION) for t in tokens
             )
 
+        if item.get("arpabet"):
+            item = {**item, "phones": arpabet_to_ipa(item["arpabet"])}
         if item.get("characters"):
-            if not item.get("phones") and lang is not None and lang in self.g2p_languages:
-                raise NotImplementedError(
-                    f"G2P from characters (language {lang!r}) {LATER_SLICE}"
-                )
             norm = self.text_processor.normalize_text(
                 item["characters"], lang_id=lang, dataset_label=dataset_label
             )
             characters = join(self.text_processor.apply_tokenization(norm, quiet=True))
+            # The registry at this moment: a config's plugins count too.
+            if not item.get("phones") and lang is not None and lang in AVAILABLE_G2P_ENGINES:
+                phones = join(self.text_processor.apply_g2p_and_tokenization(norm, lang, quiet=True))
         if item.get("phones"):
             norm = self.text_processor.normalize_text(
                 item["phones"], lang_id=lang, dataset_label=dataset_label
             )
             phones = join(self.text_processor.apply_tokenization(norm, quiet=True))
-        return characters, phones, None
+        if use_pfs and phones:
+            pfs = self.text_processor.calculate_phonological_features(
+                self.text_processor.split_tokens(phones))
+        return characters, phones, pfs
 
     # ------------------------------------------------------------------
     # batched features (the card)
@@ -544,15 +544,18 @@ class Preprocessor:
                 f.write("\n".join(self.multichannel_files_list))
                 f.write("\n")
 
-    def _process_text_step(self, processed_filelist: Path) -> None:
+    def _process_text_step(self, processed_filelist: Path, use_pfs: bool = False) -> None:
         filelist = self.load_filelist(processed_filelist)
         before = Counter(self.text_processor.missing_symbols)
         for item in filelist:
-            characters, phones, _ = self.process_text(item)
+            characters, phones, pfs = self.process_text(item, use_pfs=use_pfs)
             if characters is not None:
                 item["character_tokens"] = characters
             if phones is not None:
                 item["phone_tokens"] = phones
+            if pfs is not None:
+                path = self.create_path(self.get_speaker_and_language(item), "pfs", "pfs.npy")
+                np.save(path, pfs, allow_pickle=False)
         write_filelist(filelist, processed_filelist)
         for symbol, count in (self.text_processor.missing_symbols - before).items():
             logger.warning(
@@ -603,8 +606,6 @@ class Preprocessor:
         lock. ``last_step_seconds`` holds each step's wall seconds."""
         if device_audio:
             raise NotImplementedError(f"device_audio=True (the batched audio pass) {LATER_SLICE}")
-        if "pfs" in to_process:
-            raise NotImplementedError(f"the 'pfs' step (phonological features) {LATER_SLICE}")
         self.overwrite = overwrite
         self._features_written = {"energy": [], "pitch": []}
         if not overwrite and self.config_lock_has_conflicts():
@@ -632,8 +633,8 @@ class Preprocessor:
                 if not filelist:
                     raise RuntimeError("Your filtered audio filelist is empty; nothing to process.")
                 write_filelist(filelist, processed_filelist)
-            elif process == "text":
-                self._process_text_step(processed_filelist)
+            elif process in ("text", "pfs"):
+                self._process_text_step(processed_filelist, use_pfs=process == "pfs")
             elif process == "attn":
                 for item in self.load_filelist(processed_filelist):
                     self.process_attn_prior(item)

@@ -1,4 +1,5 @@
-"""Character-level text front end: normalization, tokenization, encoding."""
+"""Text front end: normalization, tokenization, G2P, encoding as ids or
+phonological features."""
 
 from everyvoice_tpu_torch.text.text_processor import (  # noqa: F401
     CHARACTER_JOINER,

@@ -58,7 +58,7 @@ from everyvoice_tpu_torch.models.hifigan.model import (
     WNConv2d,
     WNConvTranspose1d,
 )
-from everyvoice_tpu_torch.models.layers import set_dropout_generator
+from everyvoice_tpu_torch.models.layers import GlobalStyleTokens, set_dropout_generator
 from everyvoice_tpu_torch.parallel import (
     compress_for_transfer,
     pad_batch_for_eval,
@@ -151,10 +151,12 @@ def init_fs2_parameters(model: FastSpeech2, gen: torch.Generator) -> None:
     """flax's default initialisers, drawn from the host generator ``gen``
     and copied onto the model's device: Dense and Conv kernels lecun-normal
     (truncated, std 1/sqrt(fan_in)/0.8796), zero biases, unit norm scales,
-    embeddings N(0, 1/features), and the duration head's bias at 1.6 (about
-    4 frames a token)."""
+    embeddings N(0, 1/features), GST's style tokens N(0, 0.5²), and the
+    duration head's bias at 1.6 (about 4 frames a token)."""
     for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv1d)):
+        if isinstance(module, GlobalStyleTokens):
+            module.style_tokens.copy_(0.5 * torch.randn(module.style_tokens.shape, generator=gen))
+        if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = module.weight[0].numel()
             std = 1.0 / math.sqrt(fan_in) / LECUN_TRUNCATED_STD
             module.weight.copy_(_truncated_normal(module.weight.shape, std, gen))
@@ -494,8 +496,9 @@ class FastSpeech2Trainer(TrainerBase):
         """Parameters from a flax tree (a checkpoint's ``state_dict``)."""
         state, absent = flax_to_torch(tree, self.model)
         if absent:
-            logger.warning(f"The checkpoint has no alignment encoder ({len(absent)} "
-                           "parameters); it trains from its initial weights")
+            logger.warning(f"The checkpoint lacks {len(absent)} optional parameters "
+                           "(alignment encoder or style tokens); they train from their "
+                           "initial weights")
         self.model.load_state_dict(state)
 
     def _to_flax(self, named: dict) -> dict:

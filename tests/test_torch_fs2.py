@@ -253,7 +253,24 @@ def test_config_variants_match_flax(variant, tmp_path):
 
 
 def test_unported_options_raise():
-    for model in ({"use_global_style_token_module": True},
-                  {"target_text_representation_level": "phonological_features"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            FastSpeech2.from_config(fs2_config({"model": model}), n_symbols=10)
+    """GST and phonological-feature input, once unported, now build: the
+    port's model has exactly the flax tree (paths and shapes) that the JAX
+    package's ``init`` on a mel makes for each option (tests/test_torch_gst.py
+    holds their numbers to flax)."""
+    from everyvoice_tpu.models.fs2.config import FastSpeech2Config
+    from everyvoice_tpu_torch.convert import torch_to_flax
+    from model_stubs import CONTACT, SMALL_FS2_MODEL
+
+    for model, text in (({"use_global_style_token_module": True}, jnp.zeros((1, 8), jnp.int32)),
+                        ({"target_text_representation_level": "phonological_features"},
+                         jnp.zeros((1, 8, 43)))):
+        config = FastSpeech2Config(contact=CONTACT, model={**SMALL_FS2_MODEL, **model})
+        jmodel = JaxFastSpeech2.from_config(config, n_symbols=10)
+        rng = jax.random.PRNGKey(0)
+        want = jax.eval_shape(jmodel.init, {"params": rng, "dropout": rng}, text,
+                              jnp.asarray([8]), mel=jnp.zeros((1, 16, 80)),
+                              mel_lengths=jnp.asarray([16]))
+        tmodel = FastSpeech2.from_config(fs2_config(config.model_checkpoint_dump()), n_symbols=10)
+        got = torch_to_flax(tmodel.state_dict(), tmodel)
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        assert [g.shape for g in jax.tree.leaves(got)] == [w.shape for w in jax.tree.leaves(want)]

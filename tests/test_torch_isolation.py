@@ -1,8 +1,10 @@
 """The port stands alone: importing every module of ``everyvoice_tpu_torch``,
-running a small CPU synthesis, a small CPU preprocess and two CPU training
-steps on its artifacts loads nothing of JAX, flax, pydantic, regex, msgpack,
-PyYAML, PIL or ``everyvoice_tpu``. This file's process has imported JAX
-already (tests/conftest.py), so the check runs in a fresh interpreter."""
+running a small CPU synthesis that writes every output format, a small CPU
+preprocess of an English corpus through G2P and phonological features, and
+two CPU training steps on its artifacts loads nothing of JAX, flax,
+pydantic, regex, msgpack, PyYAML, PIL or ``everyvoice_tpu``. This file's
+process has imported JAX already (tests/conftest.py), so the check runs in
+a fresh interpreter."""
 
 import json
 import os
@@ -48,16 +50,21 @@ with tempfile.TemporaryDirectory() as tmp:
     v = save_checkpoint(tmp / "voc.ckpt", "HiFiGANGenerator", voc_raw, torch_to_flax(voc.state_dict(), voc))
     synth = Synthesizer(f, v, device="cpu")
     results = synth.synthesize(["Hello world.", "A second, slightly longer text."])
-    written = synth.write_outputs(results, tmp / "out", ("wav", "spec"))
+    written = synth.write_outputs(results, tmp / "out",
+                                  ("wav", "spec", "textgrid", "readalong-xml", "readalong-html"))
 
-    from everyvoice_tpu_torch.onchip import write_corpus
+    from everyvoice_tpu_torch.onchip import CORPUS_WORDS, write_corpus
     from everyvoice_tpu_torch.preprocessor import Preprocessor
-    filelist, wavs, _ = write_corpus(tmp / "corpus", 2)
+    from everyvoice_tpu_torch.text.phonemizer import get_g2p_engine
+    filelist, wavs, _ = write_corpus(tmp / "corpus", 2, language="eng")
+    phones = sorted({t for w in CORPUS_WORDS for t in get_g2p_engine("eng")(w)})
     pre = Preprocessor({"preprocessing": {"save_dir": str(tmp / "pre"), "source_data": [
         {"permissions_obtained": True, "data_dir": str(wavs), "filelist": str(filelist)}]},
-        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}, device="cpu")
-    pre.preprocess(to_process=("audio", "text", "spec", "attn", "energy", "pitch"), cpus=2)
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz"),
+                             "eng_phones": phones}}}, device="cpu")
+    pre.preprocess(to_process=("audio", "text", "pfs", "spec", "attn", "energy", "pitch"), cpus=2)
     specs = len(list((tmp / "pre" / "spec").glob("*.npy")))
+    pfs = len(list((tmp / "pre" / "pfs").glob("*.npy")))
 
     from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec
     small = {"encoder": conformer, "decoder": conformer, "max_length": 64,
@@ -74,7 +81,7 @@ with tempfile.TemporaryDirectory() as tmp:
     steps = trainer.global_step
     ckpts = sorted(p.name for p in trainer.ckpt_dir.iterdir())
 roots = sorted({name.split(".")[0] for name in sys.modules})
-print(json.dumps({"roots": roots, "written": len(written), "specs": specs,
+print(json.dumps({"roots": roots, "written": len(written), "specs": specs, "pfs": pfs,
                   "samples": [len(r["wav"]) for r in results], "steps": steps,
                   "ckpts": ckpts}))
 """
@@ -88,8 +95,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report["written"] == 4
-    assert report["specs"] == 2
+    assert report["written"] == 10  # two texts, five formats
+    assert report["specs"] == report["pfs"] == 2
     assert all(n > 0 for n in report["samples"])
     assert report["steps"] == 2 and "last.ckpt" in report["ckpts"]
     loaded = set(report["roots"])

@@ -28,7 +28,6 @@ from everyvoice_tpu.preprocessor import Preprocessor as JaxPreprocessor
 from everyvoice_tpu.text import TextProcessor as JaxTextProcessor
 from everyvoice_tpu_torch.config import fs2_config, preprocessing_config
 from everyvoice_tpu_torch.preprocessor import Preprocessor
-from everyvoice_tpu_torch.preprocessor.preprocessor import G2P_LANGUAGES
 from everyvoice_tpu_torch.text import TextProcessor
 
 SR = 22050
@@ -238,26 +237,106 @@ def test_missing_permission_raises(tmp_path):
         Preprocessor(raw, device="cpu")
 
 
+ENG_ROWS = {  # the eight-word texts of onchip.write_corpus, one row as ARPABET
+    "utt00002": "HH AH0 L OW1  W ER1 L D  DH AH0  K W IH1 K",
+}
+
+
+@pytest.fixture(scope="module")
+def eng_runs(tmp_path_factory):
+    """Both Preprocessors, steps audio, text and pfs, on one seeded English
+    corpus given as characters only: G2P gives the phones, except for one
+    row with an ``arpabet`` column. The inventory lacks one of the engine's
+    phones, so both drop and count it."""
+    from everyvoice_tpu.text.arpabet import arpabet_to_ipa
+    from everyvoice_tpu.text.phonemizer import _BUILTIN_FACTORIES
+    from everyvoice_tpu_torch.onchip import CORPUS_WORDS, write_corpus
+
+    root = tmp_path_factory.mktemp("eng")
+    filelist, wavs, _ = write_corpus(root, 4, seed=3, language="eng")
+    rows = [r.split("|") for r in filelist.read_text(encoding="utf8").splitlines()]
+    lines = ["basename|characters|arpabet|speaker|language"]
+    lines += [f"{b}|{c}|{ENG_ROWS.get(b, '')}|{s}|{lang}" for b, c, s, lang in rows[1:]]
+    filelist.write_text("\n".join(lines) + "\n", encoding="utf8")
+    engine = _BUILTIN_FACTORIES["eng"]()
+    phones = {t for w in CORPUS_WORDS for t in engine(w)}
+    phones |= {t for a in ENG_ROWS.values() for t in arpabet_to_ipa(a)}
+    text = {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz"),
+                        "eng_phones": sorted(phones - {" ", "ŋ"})},
+            "cleaners": TEXT["cleaners"]}
+    steps = ("audio", "text", "pfs")
+
+    def raw(save_dir):
+        return {"contact": CONTACT, "text": text, "preprocessing": {
+            "dataset": "torch-eng", "save_dir": str(save_dir),
+            "source_data": [{"label": LABEL, "permissions_obtained": True,
+                             "data_dir": str(wavs), "filelist": str(filelist)}]}}
+
+    jax_pre = JaxPreprocessor(FastSpeech2Config(**raw(root / "jax")))
+    jax_pre.preprocess(to_process=steps)
+    port = Preprocessor(raw(root / "torch"), device="cpu")
+    port.preprocess(to_process=steps)
+    return {"jax": root / "jax", "torch": root / "torch", "jax_pre": jax_pre, "port": port}
+
+
+@pytest.mark.parametrize("name", ["filelist.psv", "training_filelist.psv",
+                                  "validation_filelist.psv"])
+def test_eng_filelists_with_g2p_and_arpabet_are_byte_identical(eng_runs, name):
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    assert (eng_runs["torch"] / name).read_bytes() == (eng_runs["jax"] / name).read_bytes()
+    rows = generic_psv_filelist_reader(eng_runs["torch"] / name)
+    assert rows and all(r["phone_tokens"] for r in rows)
+
+
+def test_eng_pfs_are_bit_equal(eng_runs):
+    names = _files(eng_runs["jax"], "pfs")
+    assert _files(eng_runs["torch"], "pfs") == names and len(names) == 4
+    for name in names:
+        want = np.load(eng_runs["jax"] / "pfs" / name)
+        got = np.load(eng_runs["torch"] / "pfs" / name)
+        assert got.dtype == want.dtype == np.float32 and got.shape[1] == 43
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert eng_runs["port"].text_processor.missing_symbols["ŋ"] > 0
+    assert (eng_runs["port"].text_processor.missing_symbols
+            == eng_runs["jax_pre"].text_processor.missing_symbols)
+
+
 @pytest.mark.parametrize("call", ["device_audio", "pfs", "ood", "g2p", "arpabet"])
-def test_later_slices_raise(runs, tmp_path, call):
-    port = Preprocessor(_raw_config(runs["root"], runs["filelist"], tmp_path / "out"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        if call == "device_audio":
-            port.preprocess(to_process=STEPS, device_audio=True)
-        elif call == "pfs":
-            port.preprocess(to_process=("audio", "text", "pfs"))
-        elif call == "ood":
-            port.preprocess_ood({"eng": ["hello"]})
-        elif call == "g2p":
-            port.process_text({"characters": "hello", "language": "eng"})
-        else:
-            port.process_text({"arpabet": "HH AH0"})
+def test_later_slices_raise(runs, eng_runs, tmp_path, call):
+    """What a later slice brings raises (the device audio path and
+    ``preprocess_ood``); the text options this slice ported give the JAX
+    package's ``process_text`` result: phonological features, G2P from
+    characters, and ARPABET converted to IPA phones."""
+    if call in ("device_audio", "ood"):
+        port = Preprocessor(_raw_config(runs["root"], runs["filelist"], tmp_path / "out"),
+                            device="cpu")
+        with pytest.raises(NotImplementedError):
+            if call == "device_audio":
+                port.preprocess(to_process=STEPS, device_audio=True)
+            else:
+                port.preprocess_ood({"eng": ["hello"]})
+        return
+    item = {"basename": "x", "label": LABEL,
+            "characters": "The quick brown fox, near my house!", "language": "eng"}
+    if call == "arpabet":
+        item = {**item, "arpabet": ENG_ROWS["utt00002"]}
+    got = eng_runs["port"].process_text(item, use_pfs=call == "pfs")
+    want = eng_runs["jax_pre"].process_text(item, use_pfs=call == "pfs")
+    assert got[:2] == want[:2] and got[1]
+    if call == "pfs":
+        assert got[2].shape == (len(got[1].split("/")), 43)
+        np.testing.assert_array_equal(got[2], want[2])
+    else:
+        assert got[2] is None and want[2] is None
 
 
 def test_g2p_languages_are_the_jax_registry():
     from everyvoice_tpu.text.phonemizer import AVAILABLE_G2P_ENGINES
 
-    assert G2P_LANGUAGES == set(AVAILABLE_G2P_ENGINES)
+    from everyvoice_tpu_torch.text.phonemizer import BUILTIN_G2P_LANGUAGES
+
+    assert BUILTIN_G2P_LANGUAGES == set(AVAILABLE_G2P_ENGINES)
 
 
 @pytest.mark.parametrize("label, lang", [(LABEL, None), (LABEL, "git"), ("OTHER", None), (None, None)])

@@ -78,11 +78,24 @@ def test_chunk_text_matches(kwargs):
 
 
 def test_phone_level_and_g2p_raise():
-    cfg = fs2_config({})["text"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TextProcessor(cfg, "phones")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TextProcessor(cfg).encode_text("hello", apply_g2p=True, lang_id="eng")
+    """Phone level and G2P run as in the JAX package: the same id table at
+    every level, the same ids through the ``eng`` engine, and the same
+    ValueErrors where G2P cannot run (no engine for the language, or
+    features asked for without G2P)."""
+    jax_cfg = TextConfig(symbols={"ipa": ["h", "ʌ", "l", "o", "ʊ", "ɛ", "ə"]})
+    jtp = JaxTextProcessor(jax_cfg)
+    cfg = fs2_config({"text": jax_cfg.model_dump(mode="json")})["text"]
+    assert TextProcessor(cfg, "phones").symbols == TextProcessor(cfg).symbols == jtp.symbols
+    want = jtp.encode_text("hello", apply_g2p=True, lang_id="eng", quiet=True)
+    assert want and TextProcessor(cfg).encode_text("hello", apply_g2p=True, lang_id="eng",
+                                                    quiet=True) == want
+    for kwargs in ({"apply_g2p": True, "lang_id": "xyz"},
+                   {"encode_as_phonological_features": True, "lang_id": "eng"}):
+        with pytest.raises(ValueError) as jax_error:
+            jtp.encode_text("hello", **kwargs)
+        with pytest.raises(ValueError) as port_error:
+            TextProcessor(cfg, "phones").encode_text("hello", **kwargs)
+        assert str(port_error.value) == str(jax_error.value)
 
 
 def test_cleaners_resolve_by_name_without_the_jax_package():
