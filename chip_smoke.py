@@ -68,7 +68,23 @@ Phases, any failure of which exits nonzero:
    read-along XML and HTML, each checked; hold one float32 synthesis with
    the style reference to the CPU's. Every MRF stage of the phase (both
    validations, the served requests) is held to the plain version;
-10. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+10. the command-line journey at full width: a seeded 64-utterance corpus
+    and a project of YAML files as the JAX wizard writes one (paths
+    relative to ``config/``), then, from another working directory, each
+    verb through ``cli.main``: ``preprocess text-to-spec`` (every feature
+    batch's log-mel held to the plain version), ``train text-to-spec`` (20
+    steps, the seeded V1 for validation audio) and ``train spec-to-wav``
+    (20 steps, 5 of warmup) at full width, ``export spec-to-wav``,
+    ``synthesize from-text`` into all five formats and ``from-spec`` on its
+    specs, ``evaluate`` on the card (SI-SDR of the one against the other;
+    two rows held to the CPU's),
+    ``checkpoint inspect`` and ``rename-speaker`` and a synthesis as the
+    renamed speaker, ``g2p``, ``check text-config`` and ``check data``.
+    Every MRF stage of the phase is held to the plain version in bfloat16.
+    ``python -m everyvoice_tpu_torch --help`` and ``synthesize from-spec``
+    then run as processes, the latter with no ``EVERYVOICE_DEVICE``, and
+    must land on the card;
+11. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -1573,6 +1589,224 @@ def phone_voice_phase(root: Path, voc_path: Path, v1_ckpt: Path, char_step_ms: f
                     "finetune": tuned["row"], "serving": served["row"], "reference": reference}}
 
 
+CLI_UTTERANCES = 64
+CLI_TRAIN_STEPS = 20
+CLI_VOCODER_WARMUP = 5
+CLI_TEXTS = 16
+# The floor of the mean SI-SDR of ``synthesize from-spec``'s wavs against
+# ``synthesize from-text``'s (the same specs through the same vocoder): 10 dB
+# below the 39.21 dB of the first run on an NVIDIA H100 80GB HBM3 at 700 W.
+CLI_SI_SDR_FLOOR_DB = 29.2
+# ``evaluate``'s metrics on the card against the CPU: up to one unit in the
+# last place each is rounded to (float32 sums in another order can cross a
+# rounding boundary); the duration and the sample counts exact.
+EVALUATE_TOLERANCES = {"duration_s": 0.0, "loudness_lufs": 0.015, "clipping_rate": 0.0,
+                       "silence_ratio": 0.0, "spectral_flatness": 1.5e-4, "si_sdr": 1.5e-3,
+                       "stoi": 1.5e-4}
+
+
+def cli_phase(root: Path, voc_path: Path, card: str) -> dict:
+    """The command-line journey at full width: a seeded corpus and a project
+    of YAML files with paths relative to ``config/``, then each verb through
+    ``cli.main`` from another working directory; ``python -m
+    everyvoice_tpu_torch`` as a real process twice. Every MRF stage of the
+    trainings, validations and syntheses is held to the plain version, every
+    feature batch's log-mel too."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch import cli
+    from everyvoice_tpu_torch.evaluation import evaluate_directory
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.onchip import TEXTS, write_corpus, write_project
+    from everyvoice_tpu_torch.ops.mel import log_mel
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint_header
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    t_phase = time.perf_counter()
+    work = root / "cli"
+    project = work / "cli-project"
+    filelist, wavs, audio_s = write_corpus(project / "corpus", CLI_UTTERANCES, seed=10)
+    config_dir = write_project(work, filelist, wavs, name="cli-project",
+                               symbols={"characters": list("abcdefghijklmnopqrstuvwxyz")})
+    fs2_yaml = config_dir / "everyvoice-text-to-spec.yaml"
+    voc_yaml = config_dir / "everyvoice-spec-to-wav.yaml"
+    data = (config_dir / "everyvoice-shared-data.yaml").read_text()
+    if "../" not in data or str(work) in data:
+        fail(f"the project's data config holds no relative paths:\n{data}")
+    texts = work / "texts.psv"
+    texts.write_text("basename|characters\n" + "".join(
+        f"text{i:02d}|{(TEXTS * 2)[i]}\n" for i in range(CLI_TEXTS)), encoding="utf8")
+    logs = project / "logs_and_checkpoints"
+    walls: dict = {}
+
+    def run(name: str, *args) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main([str(a) for a in args])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{name}: exit code {rc}")
+
+    preprocessors = []
+    plain_preprocess = Preprocessor.preprocess
+
+    def recording(self, *args, **kwargs):
+        preprocessors.append(self)
+        return plain_preprocess(self, *args, **kwargs)
+
+    stages: dict = {}
+    cwd = Path.cwd()
+    (work / "elsewhere").mkdir()
+    os.chdir(work / "elsewhere")
+    Preprocessor.preprocess = recording
+    hifigan.mrf_stage = checked_mrf_stages(stages)
+    log_mel.launches = 0
+    log_mel.fft_launches = 0
+    mrf_stage.launches = 0
+    try:
+        run("preprocess", "preprocess", "text-to-spec", fs2_yaml)
+        mel_launches, fft_launches = log_mel.launches, log_mel.fft_launches
+        run("train text-to-spec", "train", "text-to-spec", fs2_yaml,
+            "-c", f"training.max_steps={CLI_TRAIN_STEPS}",
+            "-c", f"training.val_check_interval={CLI_TRAIN_STEPS}",
+            "-c", f"training.vocoder_path={voc_path}", "-c", "training.logger.name=fs2")
+        run("train spec-to-wav", "train", "spec-to-wav", voc_yaml,
+            "-c", f"training.max_steps={CLI_TRAIN_STEPS}",
+            "-c", f"training.generator_warmup_steps={CLI_VOCODER_WARMUP}",
+            "-c", "training.logger.name=vocoder")
+        [fs2_ckpt] = logs.glob("fs2/base/*/checkpoints/last.ckpt")
+        [voc_ckpt] = logs.glob("vocoder/base/*/checkpoints/last.ckpt")
+        generator = work / "generator.ckpt"
+        run("export spec-to-wav", "export", "spec-to-wav", voc_ckpt, generator)
+        run("synthesize from-text", "synthesize", "from-text", fs2_ckpt, "-f", texts,
+            "--vocoder-path", generator, "-o", "from-text", *[
+                x for t in ("wav", "spec", "textgrid", "readalong-xml", "readalong-html")
+                for x in ("-O", t)])
+        run("synthesize from-spec", "synthesize", "from-spec", generator,
+            "-i", "from-text/synthesized_spec", "-o", "from-spec")
+        run("evaluate", "evaluate", "-d", "from-spec/wav", "-g", "from-text/wav",
+            "-o", "evaluation.json")
+        run("checkpoint inspect", "checkpoint", "inspect", fs2_ckpt, "--show-architecture")
+        run("checkpoint rename-speaker", "checkpoint", "rename-speaker", fs2_ckpt, "default",
+            "narrator", work / "renamed.ckpt")
+        run("synthesize from-text -s", "synthesize", "from-text", work / "renamed.ckpt",
+            "-t", TEXTS[0], "-s", "narrator", "--vocoder-path", generator, "-o", "renamed")
+        run("g2p", "g2p", "eng", "hello world")
+        run("check text-config", "check", "text-config",
+            config_dir / "everyvoice-shared-text.yaml", "-f", filelist)
+        run("check data", "check", "data", fs2_yaml, "--model-path", fs2_ckpt,
+            "-o", "checked-data.json")
+        mrf_launches = mrf_stage.launches
+        out = Path.cwd()
+    finally:
+        os.chdir(cwd)
+        Preprocessor.preprocess = plain_preprocess
+        hifigan.mrf_stage = mrf_stage
+
+    [pre] = preprocessors
+    batches = len(pre.last_batch_shapes)
+    if mel_launches == 0 or mel_launches != batches or fft_launches != batches:
+        fail(f"preprocess: log_mel launched {mel_launches} times ({fft_launches} through the "
+             f"FFT kernel) for {batches} feature batches")
+    save = pre.save_dir
+    if save != (project / "preprocessed").resolve():
+        fail(f"preprocess wrote to {save}, not the project's preprocessed/")
+    for kind in ("spec", "energy", "pitch", "attn"):
+        n = len(list((save / kind).glob("*.npy")))
+        if n != CLI_UTTERANCES:
+            fail(f"preprocess: {n} {kind} artifacts for {CLI_UTTERANCES} utterances")
+    n_train = len(generic_psv_filelist_reader(save / "training_filelist.psv"))
+    if n_train != int(CLI_UTTERANCES * 0.9):
+        fail(f"preprocess: {n_train} training rows")
+    served_mel, _ = check_served_features(pre)
+
+    for ckpt, name in ((fs2_ckpt, "FastSpeech2"), (voc_ckpt, "HiFiGAN"),
+                       (generator, "HiFiGANGenerator")):
+        header = load_checkpoint_header(ckpt)
+        if header["model_info"]["name"] != name or header["global_step"] != CLI_TRAIN_STEPS:
+            fail(f"{ckpt.name}: {header['model_info']} at step {header['global_step']}")
+    if load_checkpoint_header(work / "renamed.ckpt")["hyper_parameters"]["speaker2id"] != {
+            "narrator": 0}:
+        fail("rename-speaker did not rename 'default' to 'narrator'")
+    wavs_text = sorted((out / "from-text" / "wav").glob("*.wav"))
+    wavs_spec = sorted((out / "from-spec" / "wav").glob("*.wav"))
+    for sub, pattern in (("synthesized_spec", "*.npy"), ("textgrids", "*.TextGrid"),
+                         ("readalongs", "*.readalong"), ("readalongs", "*.html")):
+        if len(list((out / "from-text" / sub).glob(pattern))) != CLI_TEXTS:
+            fail(f"synthesize from-text wrote no {CLI_TEXTS} {sub}/{pattern}")
+    if len(wavs_text) != CLI_TEXTS or [p.name for p in wavs_spec] != [p.name for p in wavs_text]:
+        fail(f"synthesize wrote {len(wavs_text)} wavs from text, {len(wavs_spec)} from specs")
+    if not list((out / "renamed" / "wav").glob("*--narrator--default.wav")):
+        fail("synthesis as 'narrator' wrote no wav")
+    results = json.loads((out / "evaluation.json").read_text())
+    si_sdr = float(np.mean([r["si_sdr"] for r in results]))
+    if len(results) != CLI_TEXTS or not np.isfinite(si_sdr):
+        fail(f"evaluate: {len(results)} rows, mean SI-SDR {si_sdr}")
+    if si_sdr < CLI_SI_SDR_FLOOR_DB:
+        fail(f"evaluate: mean SI-SDR {si_sdr} dB below {CLI_SI_SDR_FLOOR_DB} dB")
+    # The card's rows against the CPU's for the first two wavs: equal up to
+    # one unit in the last place each metric is rounded to.
+    for card_row in results[:2]:
+        wav = Path(card_row["file"])
+        if not wav.is_absolute():
+            wav = out / wav
+        [cpu_row] = evaluate_directory(wav, reference_dir=out / "from-text" / "wav",
+                                       device="cpu")
+        for key, tol in EVALUATE_TOLERANCES.items():
+            if card_row[key] is None or abs(card_row[key] - cpu_row[key]) > tol:
+                fail(f"evaluate {wav.name}: {key} {card_row[key]} on the card, "
+                     f"{cpu_row[key]} on the CPU")
+    checked = json.loads((out / "checked-data.json").read_text())
+    if len(checked) != n_train or not all(
+            np.isfinite(v) for r in checked for k, v in r.items() if k != "basename"):
+        fail(f"check data: {len(checked)} rows for {n_train} items, or a loss not finite")
+
+    rows = [stages[k] for k in sorted(stages)]
+    for row in rows:
+        print("cli stage " + json.dumps(row), flush=True)
+    if sum(r["calls"] for r in rows) != mrf_launches or mrf_launches == 0:
+        fail(f"{mrf_launches} mrf_stage launches in the CLI journey, "
+             f"{sum(r['calls'] for r in rows)} held to the plain version")
+    if any(r["dtype"] != "bfloat16" for r in rows):
+        fail(f"an MRF stage of the CLI journey ran in {[r['dtype'] for r in rows]}")
+
+    env = {k: v for k, v in os.environ.items() if k != "EVERYVOICE_DEVICE"}
+    env["PYTHONPATH"] = str(ROOT)
+    t0 = time.perf_counter()
+    shown = subprocess.run([sys.executable, "-m", "everyvoice_tpu_torch", "--help"], cwd=work,
+                           env=env, capture_output=True, text=True, timeout=120)
+    walls["--help (process)"] = time.perf_counter() - t0
+    if shown.returncode != 0 or "synthesize" not in shown.stdout:
+        fail(f"python -m everyvoice_tpu_torch --help: exit {shown.returncode}\n{shown.stderr}")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "everyvoice_tpu_torch", "synthesize", "from-spec", generator,
+         "-i", out / "from-text" / "synthesized_spec", "-o", work / "child"],
+        cwd=work, env=env, capture_output=True, text=True, timeout=300)
+    walls["synthesize from-spec (process)"] = time.perf_counter() - t0
+    device_lines = [line for line in child.stderr.splitlines() if line.startswith("device: ")]
+    if child.returncode != 0 or device_lines != ["device: cuda"]:
+        fail(f"the synthesize from-spec process: exit {child.returncode}, {device_lines}\n"
+             f"{child.stderr[-2000:]}")
+    if len(list((work / "child" / "wav").glob("*.wav"))) != CLI_TEXTS:
+        fail("the synthesize from-spec process wrote no wavs")
+
+    row = {"utterances": CLI_UTTERANCES, "audio_s": audio_s, "walls_s": walls,
+           "verbs_s": sum(v for k, v in walls.items() if "process" not in k),
+           "phase_s": time.perf_counter() - t_phase, "mrf_launches": mrf_launches,
+           "log_mel_launches": mel_launches, "feature_batches": batches,
+           "si_sdr_db": si_sdr, "child_device": device_lines[0], "card": card}
+    print("cli " + json.dumps(row), flush=True)
+    return {"mrf_launches": mrf_launches, "mel_launches": mel_launches, "stages": rows,
+            "served_mel": served_mel, "row": row}
+
+
 def timed_build(name: str) -> tuple:
     from everyvoice_tpu_torch.ops import _build
 
@@ -1634,6 +1868,7 @@ def main() -> int:
         vocoder = vocoder_phase(tmp, prep["cfg"], fs2_ckpt, card)
         phone = phone_voice_phase(tmp, voc_path, vocoder["ckpt"], char_step_ms,
                                   served["requests"], card)
+        cli_run = cli_phase(tmp, voc_path, card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -1642,16 +1877,18 @@ def main() -> int:
         "source": "everyvoice_tpu_torch/ops/csrc/mrf.cu",
         "replaces": "everyvoice_tpu/ops/mrf_pallas.py:137",
         "launches": (served["launches"] + training_launches + vocoder["launches"]
-                     + vocoder["serving_launches"] + phone["mrf_launches"]),
+                     + vocoder["serving_launches"] + phone["mrf_launches"]
+                     + cli_run["mrf_launches"]),
         "serving_launches": served["launches"],
         "training_launches": training_launches,
         "vocoder_training_launches": vocoder["launches"],
         "trained_vocoder_serving_launches": vocoder["serving_launches"],
         "phone_voice_launches": phone["mrf_launches"],
+        "cli_launches": cli_run["mrf_launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + training_stages
-                           + vocoder["stages"] + phone["stages"]),
+                           + vocoder["stages"] + phone["stages"] + cli_run["stages"]),
         "ms": sum(r["kernel_ms"] for r in bf16),
         "plain_ms": sum(r["plain_ms"] for r in bf16),
         "bound_ms": sum(r["bound_ms"] for r in bf16),
@@ -1663,11 +1900,13 @@ def main() -> int:
         "route": "cuda",
         "source": "everyvoice_tpu_torch/ops/csrc/mel.cu",
         "replaces": "everyvoice_tpu/ops/mel_pallas.py:67",
-        "launches": prep["launches"] + phone["mel_launches"],
-        "fft_launches": prep["fft_launches"] + phone["mel_launches"],
+        "launches": prep["launches"] + phone["mel_launches"] + cli_run["mel_launches"],
+        "fft_launches": prep["fft_launches"] + phone["mel_launches"] + cli_run["mel_launches"],
         "phone_voice_launches": phone["mel_launches"],
+        "cli_launches": cli_run["mel_launches"],
         "design": "shared-memory radix-2 Stockham FFT (n_fft a power of two)",
-        "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel + phone["served_mel"]),
+        "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel + phone["served_mel"]
+                           + cli_run["served_mel"]),
         "ms": sum(r["kernel_ms"] for r in mel_rows),
         "plain_ms": sum(r["plain_ms"] for r in mel_rows),
         "bound_ms": sum(r["bound_ms"] for r in mel_rows),

@@ -1,0 +1,502 @@
+"""The ``everyvoice-tpu-torch`` command line: the verbs of
+``everyvoice-tpu`` (everyvoice_tpu/cli.py) that the port's slices serve,
+with the same spellings, defaults and exit codes, on ``argparse``.
+
+    python -m everyvoice_tpu_torch preprocess text-to-spec config/everyvoice-text-to-spec.yaml
+    python -m everyvoice_tpu_torch train text-to-spec config/everyvoice-text-to-spec.yaml
+    python -m everyvoice_tpu_torch synthesize from-text last.ckpt -t "Hello." --vocoder-path v.ckpt
+
+Config files are the JAX package's YAML or JSON project files
+(``config_files.load_config_from_path``); ``-c key.path=value`` overrides
+them. Checkpoints are EVTP files that either package reads.
+
+Every verb that computes runs on the CUDA card and fails without one.
+``EVERYVOICE_DEVICE=cpu`` puts every verb on the CPU; ``train``'s
+``-a cpu`` does so for training. Flags that ask for what the port does not
+have yet exit non-zero naming the ``ROADMAP.md`` item that brings it.
+``--help`` imports no torch: the heavy imports sit in the verbs' bodies.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from collections import Counter
+from pathlib import Path
+
+PROG = "everyvoice-tpu-torch"
+VERSION = "0.1.0"
+OUTPUT_TYPES = ("wav", "spec", "textgrid", "readalong-xml", "readalong-html")
+STEPS = ("audio", "text", "pfs", "spec", "attn", "energy", "pitch", "ood")
+ROADMAP_ITEMS = {
+    "device_audio": "queue 1, 'The rest' (the preprocessor's device audio path)",
+    "styletts2": "queue 1, 'StyleTTS2'",
+    "parallelism": "queue 1, 'Parallelism'",
+}
+
+
+class CLIError(Exception):
+    """A failure the command reports as ``Error: <message>`` with exit code 1."""
+
+
+def not_ported(what: str, item: str) -> CLIError:
+    return CLIError(f"{what} is not ported to the PyTorch package yet; see ROADMAP.md, "
+                    f"{ROADMAP_ITEMS[item]}")
+
+
+def _device(name=None):
+    """The torch device a verb computes on: ``name``, else
+    ``EVERYVOICE_DEVICE``, else the CUDA card (an error without one)."""
+    from everyvoice_tpu_torch.device import resolve_device
+
+    try:
+        device = resolve_device(name or os.environ.get("EVERYVOICE_DEVICE") or None)
+    except (RuntimeError, ValueError) as e:
+        raise CLIError(f"{e} (on the command line: EVERYVOICE_DEVICE=cpu, or train -a cpu)"
+                       ) from None
+    print(f"device: {device}", file=sys.stderr, flush=True)
+    return device
+
+
+def _load_config(kind: str, path: Path, overrides):
+    from everyvoice_tpu_torch.config_files import ConfigError, load_config_from_path
+
+    try:
+        return load_config_from_path(kind, path, overrides or ())
+    except ConfigError as e:
+        raise CLIError(str(e)) from None
+
+
+# ---------------------------------------------------------------------------
+# verbs
+
+
+def preprocess(args) -> int:
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+
+    if args.device_audio:
+        raise not_ported("--device-audio", "device_audio")
+    steps = tuple(args.steps or ())
+    if "ood" in steps:
+        raise not_ported("-s ood (out-of-domain text for StyleTTS2)", "styletts2")
+    if args.debug:
+        import logging
+
+        logging.getLogger("everyvoice_tpu_torch").setLevel(logging.DEBUG)
+    config = _load_config(args.model_kind, args.config_path, args.config_args)
+    if not steps:
+        steps = (("audio", "spec") if args.model_kind == "spec-to-wav"
+                 else ("audio", "text", "spec", "attn", "energy", "pitch"))
+    pre = Preprocessor(config, device=_device())
+    pre.preprocess(to_process=steps, overwrite=args.overwrite, cpus=args.cpus)
+    return 0
+
+
+def _train_device(args):
+    if args.accelerator == "tpu":
+        raise CLIError("--accelerator tpu: the PyTorch package runs on a CUDA card "
+                       "(auto or gpu) or on the CPU (cpu)")
+    if args.strategy != "ddp":
+        raise not_ported(f"--strategy {args.strategy}", "parallelism")
+    if args.devices != "auto":
+        try:
+            devices = int(args.devices)
+        except ValueError:
+            raise CLIError(f"--devices {args.devices!r}: expected 'auto' or a count") from None
+        if devices > 1:
+            raise not_ported(f"--devices {devices}", "parallelism")
+    if args.nodes > 1:
+        raise not_ported(f"--nodes {args.nodes}", "parallelism")
+    return _device("cpu" if args.accelerator == "cpu"
+                   else "cuda" if args.accelerator == "gpu" else None)
+
+
+def train(args) -> int:
+    device = _train_device(args)
+    kind = args.model_kind
+    config = _load_config(kind, args.config_path, args.config_args)
+    if kind == "text-to-spec":
+        from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec as fit
+    else:
+        from everyvoice_tpu_torch.train.spec_to_wav import train_spec_to_wav as fit
+    trainer = fit(config, gradient_clip_val=args.gradient_clip_val,
+                  profile_steps=args.profile_steps,
+                  steps_per_execution=args.steps_per_execution,
+                  compute_precision=args.compute_precision, device=device)
+    print(f"Training complete; checkpoints at {trainer.ckpt_dir}")
+    return 0
+
+
+def _filelist_texts(filelist) -> tuple:
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    rows = generic_psv_filelist_reader(filelist)
+    return rows, [r.get("characters") or r.get("text") or "" for r in rows]
+
+
+def synthesize_from_text(args) -> int:
+    from everyvoice_tpu_torch.models.fs2.synthesize import (
+        Synthesizer,
+        synthesize_teacher_forced_specs,
+    )
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint_header
+
+    texts = list(args.text or ())
+    rows = basenames = None
+    if args.filelist is not None:
+        rows, filelist_texts = _filelist_texts(args.filelist)
+        texts += filelist_texts
+        basenames = [r.get("basename") for r in rows]
+    if not texts:
+        raise CLIError("Provide --text or --filelist")
+    try:
+        model_kind = load_checkpoint_header(args.model_path)["model_info"]["name"]
+    except ValueError as e:
+        raise CLIError(str(e)) from None
+    if model_kind == "StyleTTS2Module":
+        raise not_ported("Synthesis from a StyleTTS2 checkpoint", "styletts2")
+    output_types = tuple(args.output_types or ("wav",))
+    device = _device()
+    synth = Synthesizer(args.model_path, vocoder_checkpoint=args.vocoder_path, device=device)
+    if "wav" in output_types and args.vocoder_path is None:
+        raise CLIError("wav output requires --vocoder-path (or synthesize spec first)")
+    if args.teacher_forcing_directory is not None:
+        if rows is None:
+            raise CLIError("--teacher-forcing-directory requires --filelist (the "
+                           "preprocessed training filelist)")
+        count = synthesize_teacher_forced_specs(
+            args.model_path, rows, synth.config,
+            output_dir=args.teacher_forcing_directory, device=device)
+        print(f"Wrote {count} teacher-forced spectrograms to "
+              f"{args.teacher_forcing_directory}/synthesized_spec")
+        return 0
+    results = synth.synthesize(texts, language=args.language, speaker=args.speaker,
+                               duration_control=args.duration_control,
+                               style_reference=args.style_reference)
+    for path in synth.write_outputs(results, args.output_dir, output_types,
+                                    language=args.language, speaker=args.speaker,
+                                    basenames=basenames):
+        print(str(path))
+    return 0
+
+
+def synthesize_from_spec(args) -> int:
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.dsp import write_wav
+    from everyvoice_tpu_torch.models.fs2.synthesize import load_vocoder_from_checkpoint
+
+    device = _device()
+    generator, config = load_vocoder_from_checkpoint(args.model_path, device=device)
+    sr = config["preprocessing"]["audio"]["output_sampling_rate"]
+    out = Path(args.output_dir) / "wav"
+    out.mkdir(parents=True, exist_ok=True)
+    count = 0
+    for spec_path in sorted(Path(args.input_dir).glob("*.npy")):
+        mel = torch.from_numpy(np.load(spec_path).T[None].astype(np.float32)).to(device)
+        with torch.no_grad():
+            wav = generator(mel)[0].float().cpu().numpy()
+        path = out / f"{spec_path.stem.replace('--spec-pred', '')}.wav"
+        write_wav(path, wav, sr)
+        count += 1
+        print(str(path))
+    if count == 0:
+        raise CLIError(f"No .npy spectrograms found in {args.input_dir}")
+    return 0
+
+
+def export_spec_to_wav(args) -> int:
+    from everyvoice_tpu_torch.models.fs2.synthesize import export_generator
+
+    path = export_generator(args.model_path, args.output_path)
+    print(f"Exported generator to {path}")
+    return 0
+
+
+def checkpoint_inspect(args) -> int:
+    from everyvoice_tpu_torch.train.checkpoint import inspect_checkpoint
+
+    try:
+        report = inspect_checkpoint(args.checkpoint_path, args.show_config,
+                                    args.show_architecture)
+    except ValueError as e:
+        raise CLIError(str(e)) from None
+    print(report)
+    return 0
+
+
+def checkpoint_rename_speaker(args) -> int:
+    from everyvoice_tpu_torch.train.checkpoint import rename_speaker
+
+    try:
+        rename_speaker(args.checkpoint_path, args.old_name, args.new_name, args.output_path)
+    except ValueError as e:
+        raise CLIError(str(e)) from None
+    print(f"Wrote {args.output_path}")
+    return 0
+
+
+def g2p(args) -> int:
+    from everyvoice_tpu_torch.text.phonemizer import get_g2p_engine
+
+    try:
+        engine = get_g2p_engine(args.lang_id)
+    except NotImplementedError as e:
+        raise CLIError(str(e)) from None
+    print(" ".join(engine(args.text)))
+    return 0
+
+
+def check_text_config(args) -> int:
+    from everyvoice_tpu_torch.config_files import ConfigError, load_text_config_from_path
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.text.utils import guess_graphemes_in_text
+
+    try:
+        tp = TextProcessor(load_text_config_from_path(args.config_path))
+    except ConfigError as e:
+        raise CLIError(str(e)) from None
+    missing: Counter = Counter()
+    for text in _filelist_texts(args.filelist)[1]:
+        for run in tp.get_missing_symbols(tp.normalize_text(text), quiet=True):
+            for symbol in guess_graphemes_in_text(run):
+                missing[symbol] += 1
+    if not missing:
+        print("No missing symbols — your configuration covers the data.")
+        return 0
+    print("Missing symbols (symbol: count):")
+    for symbol, count in missing.most_common():
+        print(f"  {symbol!r}: {count}")
+    return 1
+
+
+def check_data(args) -> int:
+    from everyvoice_tpu_torch.train.check_data import check_data as score
+
+    config = _load_config("text-to-spec", args.config_path, ())
+    rows = score(config, args.model_path, device=_device())
+    Path(args.output).write_text(json.dumps(rows, indent=1), encoding="utf8")
+    print(f"Wrote per-item loss report to {args.output}")
+    print("Worst 5 items by total loss:")
+    for row in rows[:5]:
+        print(f"  {row['basename']}: {row['total']:.4f}")
+    return 0
+
+
+def evaluate(args) -> int:
+    from everyvoice_tpu_torch.evaluation import evaluate_directory
+
+    targets = [p for p in (args.wav_dir, args.audio_file, args.audio_directory) if p is not None]
+    if len(targets) != 1:
+        raise CLIError("Please choose to evaluate either a single file or an entire "
+                       "directory (one of WAV_DIR_OR_FILE, --audio-file, or --audio-directory).")
+    results = evaluate_directory(targets[0], reference_dir=args.reference_dir,
+                                 non_matching_reference_dir=args.non_matching_references,
+                                 device=_device())
+    Path(args.output).write_text(json.dumps(results, indent=1), encoding="utf8")
+    print(f"Wrote {args.output} ({len(results)} files)")
+    numeric: dict = {}
+    for row in results:
+        for key, value in row.items():
+            if isinstance(value, (int, float)) and not isinstance(value, bool):
+                numeric.setdefault(key, []).append(float(value))
+    if numeric:
+        print("Averages:")
+        for key in sorted(numeric):
+            values = numeric[key]
+            mean = sum(values) / len(values)
+            std = (sum((v - mean) ** 2 for v in values) / len(values)) ** 0.5
+            print(f"  {key}: {mean:.4f} ± {std:.4f} (n={len(values)})")
+    if results and not any(r.get("has_quality_metrics") for r in results):
+        print("WARNING: only signal diagnostics were produced — no quality scores. Pass "
+              "--reference-dir for intrusive SI-SDR/STOI.", file=sys.stderr)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the parser
+
+
+class _Diagnostic(argparse.Action):
+    def __init__(self, option_strings, dest, **kwargs):
+        super().__init__(option_strings, dest, nargs=0, **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        import importlib.metadata
+        import platform
+
+        print(f"EveryVoice-TPU version: {VERSION} (PyTorch package)")
+        print(f"Python version: {platform.python_version()}")
+        print(f"Platform: {platform.platform()}")
+        print("Dependencies:")
+        for package in ("torch", "triton", "numpy", "scipy"):
+            try:
+                print(f"  {package}=={importlib.metadata.version(package)}")
+            except importlib.metadata.PackageNotFoundError:
+                print(f"  {package}: not installed")
+        import torch
+
+        print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+        if torch.cuda.is_available():
+            names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+            print(f"CUDA cards: {torch.cuda.device_count()} {names}")
+        else:
+            print("CUDA cards: none")
+        parser.exit(0)
+
+
+def _existing(text: str) -> Path:
+    path = Path(text)
+    if not path.exists():
+        raise argparse.ArgumentTypeError(f"Path '{text}' does not exist.")
+    return path
+
+
+def _common_train_options(p) -> None:
+    p.add_argument("config_path", type=_existing)
+    p.add_argument("-c", "--config-args", action="append", default=[],
+                   help="key.path=value config overrides")
+    p.add_argument("-a", "--accelerator", default="auto", choices=("auto", "tpu", "cpu", "gpu"),
+                   help="auto and gpu: the CUDA card; cpu: the CPU")
+    p.add_argument("-d", "--devices", default="auto")
+    p.add_argument("-n", "--nodes", default=1, type=int)
+    p.add_argument("-s", "--strategy", default="ddp",
+                   help="'ddp' (the default; one card); others are not ported yet")
+    p.add_argument("--gradient-clip-val", default=None, type=float)
+    p.add_argument("--profile-steps", default=0, type=int,
+                   help="Capture a torch.profiler trace of the first N steps into the run dir.")
+    p.add_argument("--steps-per-execution", default=1, type=int)
+    p.add_argument("--compute-precision", default="auto", choices=("auto", "float32", "bfloat16"),
+                   help="'auto' = bfloat16 on a card, float32 on the CPU")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog=PROG, description="EveryVoice-TPU's PyTorch/CUDA package: text-to-speech on "
+        "a CUDA card.")
+    parser.add_argument("--version", action="version", version=f"{PROG}, version {VERSION}")
+    parser.add_argument("--diagnostic", action=_Diagnostic,
+                        help="Print versions of this package, its dependencies and the cards.")
+    verbs = parser.add_subparsers(dest="verb", metavar="COMMAND", required=True)
+
+    # The pipeline verbs first, the rest alphabetically (MainCommandOrder).
+    p = verbs.add_parser("preprocess", help="Preprocess a dataset.")
+    p.add_argument("model_kind", choices=("text-to-spec", "spec-to-wav"))
+    p.add_argument("config_path", type=_existing)
+    p.add_argument("-s", "--steps", action="append", choices=STEPS,
+                   help="Steps to run (default: all relevant for the model kind).")
+    p.add_argument("-O", "--overwrite", action="store_true",
+                   help="Redo all preprocessing even when artifacts exist.")
+    p.add_argument("-C", "--cpus", default=1, type=int, help="Host workers for audio IO.")
+    p.add_argument("-D", "--debug", action="store_true", help="Enable debug logging.")
+    p.add_argument("--device-audio", action="store_true", help="Not ported yet.")
+    p.add_argument("-c", "--config-args", action="append", default=[],
+                   help="key.path=value config overrides")
+    p.set_defaults(run=preprocess)
+
+    p = verbs.add_parser("train", help="Train a model.")
+    kinds = p.add_subparsers(dest="model_kind", metavar="MODEL", required=True)
+    for kind, what in (("text-to-spec", "Train a FastSpeech2 feature-prediction model."),
+                       ("spec-to-wav", "Train a HiFiGAN (or iSTFTNet) vocoder.")):
+        k = kinds.add_parser(kind, help=what)
+        _common_train_options(k)
+        k.set_defaults(run=train)
+
+    p = verbs.add_parser("synthesize", help="Synthesize speech from text or spectrograms.")
+    kinds = p.add_subparsers(dest="kind", metavar="MODE", required=True)
+    k = kinds.add_parser("from-text", help="Text → mel (→ wav with a vocoder).")
+    k.add_argument("model_path", type=_existing)
+    k.add_argument("-t", "--text", action="append", help="Text(s) to synthesize.")
+    k.add_argument("-f", "--filelist", type=_existing, default=None)
+    k.add_argument("-l", "--language", default=None)
+    k.add_argument("-s", "--speaker", default=None)
+    k.add_argument("-D", "--duration-control", default=1.0, type=float)
+    k.add_argument("-O", "--output-type", dest="output_types", action="append",
+                   choices=OUTPUT_TYPES)
+    k.add_argument("--vocoder-path", "--model", dest="vocoder_path", type=_existing, default=None)
+    k.add_argument("-o", "--output-dir", type=Path, default=Path("synthesis_output"))
+    k.add_argument("--teacher-forcing-directory", type=Path, default=None)
+    k.add_argument("--style-reference", type=_existing, default=None,
+                   help="Reference wav for GST style conditioning.")
+    k.set_defaults(run=synthesize_from_text)
+    k = kinds.add_parser("from-spec", help="Mel spectrogram files → wav (vocoder only).")
+    k.add_argument("model_path", type=_existing)
+    k.add_argument("-i", "--input-dir", type=_existing,
+                   default=Path("synthesis_output/synthesized_spec"))
+    k.add_argument("-o", "--output-dir", type=Path, default=Path("synthesis_output"))
+    k.set_defaults(run=synthesize_from_spec)
+
+    p = verbs.add_parser("check", help="Data and configuration checks.")
+    kinds = p.add_subparsers(dest="kind", metavar="CHECK", required=True)
+    k = kinds.add_parser("text-config",
+                         help="Report symbols found in the data but missing from the config.")
+    k.add_argument("config_path", type=_existing)
+    k.add_argument("-f", "--filelist", type=_existing, required=True)
+    k.set_defaults(run=check_text_config)
+    k = kinds.add_parser("data", help="Score every item's losses with a trained model.")
+    k.add_argument("config_path", type=_existing)
+    k.add_argument("--model-path", type=_existing, required=True,
+                   help="A (partially) trained FastSpeech2 checkpoint.")
+    k.add_argument("-o", "--output", type=Path, default=Path("checked-data.json"))
+    k.set_defaults(run=check_data)
+
+    p = verbs.add_parser("checkpoint", help="Inspect or edit checkpoints.")
+    kinds = p.add_subparsers(dest="kind", metavar="ACTION", required=True)
+    k = kinds.add_parser("inspect", help="Print checkpoint metadata, config and parameters.")
+    k.add_argument("checkpoint_path", type=_existing)
+    k.add_argument("--show-config", dest="show_config", action="store_true", default=True)
+    k.add_argument("--no-show-config", dest="show_config", action="store_false")
+    k.add_argument("--show-architecture", action="store_true")
+    k.set_defaults(run=checkpoint_inspect)
+    k = kinds.add_parser("rename-speaker", help="Rename a speaker in speaker2id.")
+    k.add_argument("checkpoint_path", type=_existing)
+    k.add_argument("old_name")
+    k.add_argument("new_name")
+    k.add_argument("output_path", type=Path)
+    k.set_defaults(run=checkpoint_rename_speaker)
+
+    p = verbs.add_parser("evaluate", help="Objective evaluation of synthesized wavs.")
+    p.add_argument("wav_dir", metavar="WAV_DIR_OR_FILE", nargs="?", type=_existing, default=None)
+    p.add_argument("-f", "--audio-file", type=_existing, default=None)
+    p.add_argument("-d", "--audio-directory", type=_existing, default=None)
+    p.add_argument("-g", "--reference-dir", type=_existing, default=None,
+                   help="Ground-truth wavs (same filenames) for intrusive metrics.")
+    p.add_argument("-r", "--non-matching-reference", "-n", "--non-matching-references",
+                   dest="non_matching_references", type=_existing, default=None)
+    p.add_argument("-o", "--output", type=Path, default=Path("evaluation.json"))
+    p.set_defaults(run=evaluate)
+
+    p = verbs.add_parser("export", help="Export models for serving.")
+    kinds = p.add_subparsers(dest="kind", metavar="MODEL", required=True)
+    k = kinds.add_parser("spec-to-wav", help="Strip discriminators and optimizer state.")
+    k.add_argument("model_path", type=_existing)
+    k.add_argument("output_path", type=Path)
+    k.set_defaults(run=export_spec_to_wav)
+
+    p = verbs.add_parser("g2p", help="Convert text to phones with the G2P engine for LANG_ID.")
+    p.add_argument("lang_id")
+    p.add_argument("text")
+    p.set_defaults(run=g2p)
+    return parser
+
+
+def main(argv=None) -> int:
+    """Run one command; returns its exit code (argparse exits 2 on a usage
+    error)."""
+    import logging
+
+    args = build_parser().parse_args(argv)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    try:
+        return args.run(args)
+    except CLIError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

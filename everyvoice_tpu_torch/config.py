@@ -333,20 +333,38 @@ def model_checkpoint_dump(config: dict) -> dict:
     return out
 
 
+def combine_configs(orig, new: dict):
+    """``new`` merged into ``orig``: mappings recursively, an integer key
+    indexing a list (the JAX package's ``combine_configs``)."""
+    if isinstance(orig, list):
+        out = list(orig)
+        for key, value in new.items():
+            idx = int(key)
+            out[idx] = combine_configs(out[idx], value) if isinstance(value, dict) else value
+        return out
+    out = dict(orig) if isinstance(orig, dict) else {}
+    for key, value in new.items():
+        if isinstance(value, dict) and isinstance(out.get(key), (dict, list)):
+            out[key] = combine_configs(out[key], value)
+        else:
+            out[key] = value
+    return out
+
+
 def apply_overrides(config: dict, overrides) -> dict:
-    """``key.path=value`` overrides (the CLI's ``-c``) applied to a copy of
-    ``config``, the values coerced as the JAX package's CLI does."""
-    out = copy.deepcopy(config)
+    """``key.path=value`` overrides (the CLI's ``-c``) merged into
+    ``config`` one after another, as the JAX package's
+    ``update_config_from_cli_args`` merges them, the values coerced as its
+    CLI coerces them."""
     for arg in overrides or ():
         if "=" not in arg:
             raise ValueError(f"Invalid config override '{arg}'; expected key.path=value")
         key, _, value = arg.partition("=")
-        *parents, last = key.split(".")
-        node = out
-        for part in parents:  # an integer part indexes a list
-            node = node[int(part)] if isinstance(node, list) else node.setdefault(part, {})
-        node[int(last) if isinstance(node, list) else last] = _coerce_override(value)
-    return out
+        nested = _coerce_override(value)
+        for part in reversed(key.split(".")):
+            nested = {part: nested}
+        config = combine_configs(config, nested)
+    return config
 
 
 def _coerce_override(value: str):

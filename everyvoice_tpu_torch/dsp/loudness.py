@@ -1,15 +1,26 @@
-"""ITU-R BS.1770-4 integrated loudness (LKFS/LUFS) on the host (counterpart
-of everyvoice_tpu/dsp/loudness.py::integrated_loudness_host).
+"""ITU-R BS.1770-4 integrated loudness (LKFS/LUFS) (counterpart of
+everyvoice_tpu/dsp/loudness.py).
 
-The preprocessor rejects clips quieter than −36 LUFS with it. The
-K-weighting pre-filter is the exact two-biquad cascade (scipy ``lfilter``),
-re-derived for the sample rate from the analogue prototypes; gating uses
-400 ms blocks at 75% overlap, −70 LKFS absolute then −10 LU relative.
+``integrated_loudness_host``, with which the preprocessor rejects clips
+quieter than −36 LUFS, K-weights with the exact two-biquad cascade (scipy
+``lfilter``), re-derived for the sample rate from the analogue prototypes.
+``integrated_loudness``, which ``evaluate`` reports, K-weights a tensor on
+its device with the cascade's impulse response truncated to a FIR. Both
+gate alike (``gating_blocks``, ``gated_loudness``): 400 ms blocks at 75%
+overlap, −70 LKFS absolute then −10 LU relative.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from everyvoice_tpu_torch.utils.precision import no_tf32
+
+K_WEIGHTING_TAPS = 4096
 
 
 def _biquad_coeffs(sample_rate: float) -> tuple:
@@ -40,32 +51,20 @@ def _biquad_coeffs(sample_rate: float) -> tuple:
     return shelf, hp
 
 
-def integrated_loudness_host(audio: np.ndarray, sample_rate: int) -> float:
-    """BS.1770-4 integrated loudness of one (T,) or (C, T) clip; −inf when
-    every block is gated out."""
-    from scipy.signal import lfilter
-
-    x = np.asarray(audio, dtype=np.float64)
-    if x.ndim == 1:
-        x = x[None, :]
-    (b1, a1), (b2, a2) = _biquad_coeffs(float(sample_rate))
-    weighted = lfilter(b2, a2, lfilter(b1, a1, x, axis=-1), axis=-1)
-
+def gating_blocks(n_samples: int, sample_rate: int) -> tuple:
+    """The gating blocks of a clip of ``n_samples``: 400 ms at 75% overlap.
+    Returns (block length, the padded length, the blocks' start samples); a
+    clip shorter than one block is zero-padded to one."""
     block = int(round(0.400 * sample_rate))
-    step = block // 4  # 75% overlap
-    t = weighted.shape[-1]
-    if t < block:
-        weighted = np.pad(weighted, ((0, 0), (0, block - t)))
-        t = block
-    n_blocks = 1 + (t - block) // step
-    # Mean square per gating block from a cumulative sum of squares.
-    csum = np.concatenate(
-        [np.zeros((weighted.shape[0], 1)), np.cumsum(weighted**2, axis=-1)],
-        axis=-1,
-    )
-    starts = np.arange(n_blocks) * step
-    z = (csum[:, starts + block] - csum[:, starts]) / block  # (C, n_blocks)
-    z_sum = z.sum(axis=0)  # (n_blocks,)
+    step = block // 4
+    padded = max(n_samples, block)
+    return block, padded, np.arange(1 + (padded - block) // step) * step
+
+
+def gated_loudness(z_sum: np.ndarray) -> float:
+    """Integrated loudness from the (n_blocks,) K-weighted mean squares of
+    the gating blocks (summed over channels): the −70 LKFS absolute gate,
+    then the −10 LU relative gate; −inf when every block is gated out."""
     loud_block = -0.691 + 10.0 * np.log10(np.maximum(z_sum, 1e-12))
 
     abs_mask = loud_block > -70.0
@@ -73,8 +72,58 @@ def integrated_loudness_host(audio: np.ndarray, sample_rate: int) -> float:
         return float("-inf")
     z_abs = z_sum[abs_mask].mean()
     gamma_rel = -0.691 + 10.0 * np.log10(max(z_abs, 1e-12)) - 10.0
-    rel_mask = abs_mask & (loud_block > gamma_rel)
-    if not rel_mask.any():
-        return float("-inf")
-    z_rel = z_sum[rel_mask].mean()
+    # The loudest block is at least the mean, 10 LU above the relative
+    # gate, so the relative gate always keeps a block.
+    z_rel = z_sum[abs_mask & (loud_block > gamma_rel)].mean()
     return float(-0.691 + 10.0 * np.log10(max(z_rel, 1e-12)))
+
+
+def integrated_loudness_host(audio: np.ndarray, sample_rate: int) -> float:
+    """BS.1770-4 integrated loudness of one (T,) or (C, T) clip, K-weighted
+    by the exact biquad cascade in float64."""
+    from scipy.signal import lfilter
+
+    x = np.asarray(audio, dtype=np.float64)
+    if x.ndim == 1:
+        x = x[None, :]
+    (b1, a1), (b2, a2) = _biquad_coeffs(float(sample_rate))
+    weighted = lfilter(b2, a2, lfilter(b1, a1, x, axis=-1), axis=-1)
+    block, padded, starts = gating_blocks(weighted.shape[-1], sample_rate)
+    weighted = np.pad(weighted, ((0, 0), (0, padded - weighted.shape[-1])))
+    # Mean square per gating block from a cumulative sum of squares.
+    csum = np.concatenate(
+        [np.zeros((weighted.shape[0], 1)), np.cumsum(weighted**2, axis=-1)],
+        axis=-1,
+    )
+    z = (csum[:, starts + block] - csum[:, starts]) / block  # (C, n_blocks)
+    return gated_loudness(z.sum(axis=0))
+
+
+@lru_cache(maxsize=8)
+def _k_weighting_fir(sample_rate: int) -> np.ndarray:
+    """The K-weighting biquad cascade's impulse response, truncated to
+    ``K_WEIGHTING_TAPS``."""
+    from scipy.signal import lfilter
+
+    impulse = np.zeros(K_WEIGHTING_TAPS)
+    impulse[0] = 1.0
+    (b1, a1), (b2, a2) = _biquad_coeffs(float(sample_rate))
+    return lfilter(b2, a2, lfilter(b1, a1, impulse)).astype(np.float32)
+
+
+def integrated_loudness(audio: torch.Tensor, sample_rate: int) -> float:
+    """BS.1770-4 integrated loudness of a (T,) or (C, T) clip on its device
+    (counterpart of everyvoice_tpu/dsp/loudness.py::integrated_loudness):
+    K-weighted by the truncated FIR as a causal float32 ``conv1d``, the block
+    mean squares in float64; only the (n_blocks,) energies leave the device
+    for the gates."""
+    x = audio.reshape(-1, 1, audio.shape[-1]).float()
+    fir = torch.from_numpy(_k_weighting_fir(sample_rate)).to(x.device).flip(0)
+    with no_tf32():
+        weighted = F.conv1d(F.pad(x, (K_WEIGHTING_TAPS - 1, 0)), fir[None, None])[:, 0]
+    block, padded, starts = gating_blocks(weighted.shape[-1], sample_rate)
+    weighted = F.pad(weighted.double(), (0, padded - weighted.shape[-1]))
+    csum = F.pad(torch.cumsum(weighted * weighted, dim=-1), (1, 0))
+    starts = torch.from_numpy(starts).to(x.device)
+    z = (csum[:, starts + block] - csum[:, starts]) / block  # (C, n_blocks)
+    return gated_loudness(z.sum(dim=0).cpu().numpy())

@@ -1,9 +1,10 @@
 """What the on-card check (``chip_smoke.py``) and the serving profile
 (``python -m everyvoice_tpu_torch.profile_serving``) share: the card's name
 and power limit, the requests they send, seeded full-width checkpoints to
-serve them from, a seeded wav corpus to preprocess, and the vocoder training
+serve them from, a seeded wav corpus to preprocess, the vocoder training
 configs on that corpus (HiFiGAN V1 at its default full width, and the
-iSTFTNet variant).
+iSTFTNet variant), and a project of config files over a corpus, laid out as
+the JAX package's wizard lays one out.
 
 The checkpoints hold random FastSpeech2 and HiFiGAN V1 weights at the
 default widths, drawn from a ``torch.Generator``, with the duration head's
@@ -16,6 +17,7 @@ checkpoint.
 
 from __future__ import annotations
 
+import os
 import subprocess
 from pathlib import Path
 
@@ -29,6 +31,11 @@ from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
 from everyvoice_tpu_torch.text import TextProcessor
 from everyvoice_tpu_torch.train.checkpoint import save_checkpoint
+from everyvoice_tpu_torch.utils import (
+    generic_psv_filelist_reader,
+    write_config_file,
+    write_filelist,
+)
 
 TEXTS = [
     "The quick brown fox jumps over the lazy dog.",
@@ -159,3 +166,71 @@ def vocoder_config(corpus: dict, logs: Path, version: str, model: dict | None = 
             **training,
         },
     }
+
+
+# The wizard's config file stems (everyvoice_tpu/wizard/steps.py:17-23).
+CONFIG_STEMS = {
+    "text": "everyvoice-shared-text",
+    "data": "everyvoice-shared-data",
+    "text-to-spec": "everyvoice-text-to-spec",
+    "spec-to-wav": "everyvoice-spec-to-wav",
+    "text-to-wav": "everyvoice-text-to-wav",
+}
+
+
+def write_project(root: Path, filelist: Path, wav_dir: Path, name: str = "cli-project",
+                  label: str = "seeded", symbols: dict | None = None, contact: dict = CONTACT,
+                  fmt: str = "yaml") -> Path:
+    """A project over one dataset, written as the wizard's
+    ``write_config_package`` writes it: ``<root>/<name>/config/`` holds the
+    shared text and data configs and one config per model, joined by
+    ``path_to_*_config_file``; the dataset's filelist is copied into the
+    project; every path inside the project is relative to ``config/``
+    (``../preprocessed``), one outside it stays as given. ``symbols`` maps
+    a kind (``characters``, ``phones``) to its symbol list. Returns the
+    config directory."""
+    suffix = ".json" if fmt == "json" else ".yaml"
+    files = {key: f"{stem}{suffix}" for key, stem in CONFIG_STEMS.items()}
+    out_root = Path(root) / name
+    config_dir = out_root / "config"
+    config_dir.mkdir(parents=True, exist_ok=True)
+    (out_root / "preprocessed").mkdir(exist_ok=True)
+    (out_root / "logs_and_checkpoints").mkdir(exist_ok=True)
+
+    def portable(path: Path) -> str:
+        path = Path(path)
+        resolved = (path if path.is_absolute() else Path.cwd() / path).resolve()
+        if path.is_absolute() and not resolved.is_relative_to(out_root.resolve()):
+            return str(path)
+        return os.path.relpath(resolved, config_dir.resolve())
+
+    rows = generic_psv_filelist_reader(filelist)
+    speakers = {row.get("speaker") or "default" for row in rows}
+    languages = {row.get("language") or "und" for row in rows}
+    text_config = {}
+    if symbols:
+        text_config["symbols"] = {f"{label}_{kind}": list(v) for kind, v in symbols.items() if v}
+    write_config_file(config_dir / files["text"], text_config)
+    project_filelist = out_root / f"{label}-filelist.psv"
+    write_filelist(rows, project_filelist)
+    write_config_file(config_dir / files["data"], {
+        "dataset": name,
+        "save_dir": portable(out_root / "preprocessed"),
+        "source_data": [{"label": label, "permissions_obtained": True,
+                         "data_dir": portable(wav_dir), "filelist": portable(project_filelist)}],
+    })
+    preprocessed = out_root / "preprocessed"
+    training = {
+        "training_filelist": portable(preprocessed / "training_filelist.psv"),
+        "validation_filelist": portable(preprocessed / "validation_filelist.psv"),
+        "logger": {"save_dir": portable(out_root / "logs_and_checkpoints")},
+    }
+    model = {"multilingual": len(languages) > 1, "multispeaker": len(speakers) > 1}
+    for kind in ("text-to-spec", "spec-to-wav", "text-to-wav"):
+        config = {"contact": dict(contact), "path_to_preprocessing_config_file": files["data"]}
+        if kind != "spec-to-wav":
+            config["path_to_text_config_file"] = files["text"]
+            config["model"] = dict(model)
+        config["training"] = dict(training)
+        write_config_file(config_dir / files[kind], config)
+    return config_dir

@@ -168,16 +168,21 @@ class TextProcessor:
         """Greedy longest-match tokenization over the declared inventory;
         undeclared runs are dropped (and counted, with ``find_missing``)."""
         if find_missing:
-            for gap in self._missing_finder.split(normalized_text):
-                if not gap:
-                    continue
-                if not quiet:
-                    logger.warning(
-                        f"Dropping '{gap}' from '{normalized_text}': it is missing "
-                        "from the symbol inventory in your text config."
-                    )
-                self.missing_symbols[gap] += 1
+            self.get_missing_symbols(normalized_text, quiet=quiet)
         return self._tokenizer.findall(normalized_text)
+
+    def get_missing_symbols(self, normalized_text: str, quiet: bool = False) -> list:
+        """The runs of undeclared symbols in already-normalized text, each
+        counted in ``missing_symbols`` (and logged unless ``quiet``)."""
+        missing = [gap for gap in self._missing_finder.split(normalized_text) if gap]
+        for gap in missing:
+            if not quiet:
+                logger.warning(
+                    f"Dropping '{gap}' from '{normalized_text}': it is missing "
+                    "from the symbol inventory in your text config."
+                )
+            self.missing_symbols[gap] += 1
+        return missing
 
     def apply_punctuation_rules(self, tokenized_text: list) -> list:
         """Punctuation characters → their internal class tokens."""

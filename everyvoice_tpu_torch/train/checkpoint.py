@@ -121,10 +121,10 @@ def save_checkpoint(
         "epoch": int(epoch),
     }
     header_bytes = json.dumps(header, ensure_ascii=False).encode("utf8")
-    body = {"state_dict": _numpy_tree(params)}
+    body = {"state_dict": params}
     if opt_state is not None:
-        body["optimizer_states"] = _numpy_tree(opt_state)
-    body = msgpack_lite.packb(body)
+        body["optimizer_states"] = opt_state
+    body = msgpack_lite.packb(_numpy_tree(body))
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as f:
         f.write(MAGIC)
@@ -179,3 +179,60 @@ def resume_mode(old_config: dict, new_config: dict, model_name: str) -> str:
         (new_config or {}).get("training", {}).get("optimizer", {}),
     )
     return "fresh_optimizer" if optimizer_diff else "full"
+
+
+def summarize_statedict(tree, prefix: str = "") -> list:
+    """Flat (name, shape, n_params) rows of a parameter tree."""
+    rows = []
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            rows.extend(summarize_statedict(value, f"{prefix}.{key}" if prefix else key))
+    else:
+        arr = np.asarray(tree)
+        rows.append((prefix, tuple(arr.shape), int(arr.size)))
+    return rows
+
+
+def inspect_checkpoint(path: Path | str, show_config: bool = True,
+                       show_architecture: bool = False) -> str:
+    """The text ``checkpoint inspect`` prints: model, step, epoch, languages
+    and speakers, the parameters with ``show_architecture``, and the config
+    (cut at 4000 characters) with ``show_config``."""
+    header = load_checkpoint_header(path)
+    lines = [f"Checkpoint: {path}"]
+    lines.append(f"Model: {header.get('model_info', {}).get('name', '<unknown>')}")
+    lines.append(f"Global step: {header.get('global_step')}")
+    lines.append(f"Epoch: {header.get('epoch')}")
+    hp = header.get("hyper_parameters", {})
+    if hp.get("lang2id"):
+        lines.append(f"Languages: {sorted(hp['lang2id'])}")
+    if hp.get("speaker2id"):
+        lines.append(f"Speakers: {sorted(hp['speaker2id'])}")
+    if show_architecture:
+        rows = summarize_statedict(load_checkpoint(path).get("state_dict", {}))
+        lines.append(f"Total parameters: {sum(r[2] for r in rows):,}")
+        for name, shape, size in rows:
+            lines.append(f"  {name}: {shape} ({size:,})")
+    if show_config:
+        lines.append("Config:")
+        lines.append(json.dumps(hp.get("config", {}), indent=2)[:4000])
+    return "\n".join(lines)
+
+
+def rename_speaker(path: Path | str, old_name: str, new_name: str, out_path: Path | str) -> None:
+    """Write the checkpoint to ``out_path`` with ``old_name`` renamed
+    ``new_name`` in its speaker2id table; the weights are untouched."""
+    ckpt = load_checkpoint(path)
+    hp = ckpt["hyper_parameters"]
+    speaker2id = hp.get("speaker2id", {})
+    if old_name not in speaker2id:
+        raise ValueError(f"Speaker '{old_name}' not found; speakers: {sorted(speaker2id)}")
+    if new_name in speaker2id:
+        raise ValueError(f"Speaker '{new_name}' already exists")
+    speaker2id[new_name] = speaker2id.pop(old_name)
+    save_checkpoint(
+        out_path, ckpt["model_info"]["name"], hp["config"], ckpt["state_dict"],
+        step=ckpt.get("global_step", 0), epoch=ckpt.get("epoch", 0),
+        opt_state=ckpt.get("optimizer_states"), lang2id=hp.get("lang2id"),
+        speaker2id=speaker2id, stats=hp.get("stats"),
+    )

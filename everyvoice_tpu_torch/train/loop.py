@@ -68,11 +68,10 @@ from everyvoice_tpu_torch.parallel import (
 from everyvoice_tpu_torch.train.checkpoint import load_checkpoint, resume_mode, save_checkpoint
 from everyvoice_tpu_torch.train.optim import build_optimizer, learning_rate_at
 from everyvoice_tpu_torch.train.tensorboard import SummaryWriter
-from everyvoice_tpu_torch.utils import resolve_sub_dir_callable
+from everyvoice_tpu_torch.utils import resolve_sub_dir_callable, yaml_lite
 from everyvoice_tpu_torch.utils.precision import no_tf32, resolve_compute_dtype
 
 logger = logging.getLogger(__name__)
-
 
 
 def _resolve_val_interval(value, steps_per_epoch: int) -> int:
@@ -93,36 +92,6 @@ def _decompress(batch: dict) -> dict:
     """Undo ``compress_for_transfer`` on the device (float16 → float32)."""
     return {k: v.float() if isinstance(v, torch.Tensor) and v.dtype == torch.float16 else v
             for k, v in batch.items()}
-
-
-def _yaml_value(value) -> str:
-    """A JSON-typed value in YAML flow style, read back by ``yaml.safe_load``
-    as the same value (floats keep a '.', which YAML 1.1 needs)."""
-    if value is None:
-        return "null"
-    if isinstance(value, bool):
-        return "true" if value else "false"
-    if isinstance(value, int):
-        return str(value)
-    if isinstance(value, float):
-        if math.isnan(value):
-            return ".nan"
-        if math.isinf(value):
-            return ".inf" if value > 0 else "-.inf"
-        text = repr(value)
-        mantissa, e, exponent = text.partition("e")
-        return text if "." in mantissa else f"{mantissa}.0{e}{exponent}"
-    if isinstance(value, str):
-        return json.dumps(value, ensure_ascii=False)
-    if isinstance(value, dict):
-        return "{" + ", ".join(f"{_yaml_value(str(k))}: {_yaml_value(v)}"
-                               for k, v in value.items()) + "}"
-    return "[" + ", ".join(_yaml_value(v) for v in value) + "]"
-
-
-def to_yaml(data: dict) -> str:
-    """``data`` as a YAML document (the card's machine has no PyYAML)."""
-    return "".join(f"{_yaml_value(str(k))}: {_yaml_value(v)}\n" for k, v in data.items())
 
 
 def _host_floats(values: dict) -> dict:
@@ -220,7 +189,7 @@ class TrainerBase:
     # -- bookkeeping -----------------------------------------------------
     def save_hparams(self) -> None:
         (self.run_dir / "hparams.yaml").write_text(
-            to_yaml(model_checkpoint_dump(self.config)), encoding="utf8")
+            yaml_lite.dump(model_checkpoint_dump(self.config)), encoding="utf8")
 
     def log_metrics(self, metrics: dict, step: int) -> None:
         values = _host_floats(metrics)

@@ -1,13 +1,14 @@
 """Host-side helpers copied from everyvoice_tpu/utils/__init__.py: the text
 cleaners a checkpoint's text config names, output-file naming, the
-filelist readers and writer of preprocessing, and the logger's run
-sub-directory name."""
+filelist readers and writer of preprocessing, the logger's run
+sub-directory name, and the YAML/JSON config file reader and writer."""
 
 from __future__ import annotations
 
 import csv
 import hashlib
 import importlib
+import json
 import os
 import re
 from itertools import islice
@@ -75,6 +76,28 @@ def resolve_filelist_loader(name):
     if callable(name):
         return name
     return _resolve_by_name(name, FILELIST_LOADERS, "Filelist loader")
+
+
+def load_config_file(path: Path | str):
+    """A YAML or JSON config file as plain Python objects: a ``.json``
+    suffix reads as JSON, anything else as YAML (``yaml_lite``)."""
+    from everyvoice_tpu_torch.utils import yaml_lite
+
+    path = Path(path)
+    text = path.read_text(encoding="utf8")
+    return json.loads(text) if path.suffix == ".json" else yaml_lite.load(text)
+
+
+def write_config_file(path: Path | str, data: dict) -> None:
+    """Write ``data`` as JSON (a ``.json`` suffix, indent 2) or YAML."""
+    from everyvoice_tpu_torch.utils import yaml_lite
+
+    path = Path(path)
+    if path.suffix == ".json":
+        text = json.dumps(data, indent=2, ensure_ascii=False)
+    else:
+        text = yaml_lite.dump(data)
+    path.write_text(text, encoding="utf8")
 
 
 def get_current_time() -> str:

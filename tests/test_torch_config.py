@@ -42,3 +42,60 @@ def test_given_values_override_nested_defaults():
     assert m["variance_predictors"]["pitch"]["level"] == "frame"
     assert m["variance_predictors"]["pitch"]["n_bins"] == 256
     assert m["variance_predictors"]["energy"]["level"] == "phone"
+
+
+def _sections():
+    """(pydantic class, the port's default dict) for every section the port
+    checks for unknown keys."""
+    from everyvoice_tpu.config.preprocessing_config import AudioConfig, Dataset, PreprocessingConfig
+    from everyvoice_tpu.config.shared_types import ContactInformation, LoggerConfig
+    from everyvoice_tpu.config.text_config import Punctuation, TextConfig
+    from everyvoice_tpu.models.fs2.config import (
+        ConformerConfig,
+        FastSpeech2ModelConfig,
+        FastSpeech2TrainingConfig,
+        VariancePredictorBase,
+        VariancePredictorConfig,
+        VariancePredictors,
+    )
+    from everyvoice_tpu.models.hifigan.config import HiFiGANModelConfig, HiFiGANTrainingConfig
+    from everyvoice_tpu_torch import config, config_files
+
+    fs2, voc = config_files.SCHEMA["text-to-spec"], config_files.SCHEMA["spec-to-wav"]
+    return {
+        "fs2": (FastSpeech2Config, fs2[()]),
+        "hifigan": (HiFiGANConfig, voc[()]),
+        "contact": (ContactInformation, fs2[("contact",)]),
+        "fs2_model": (FastSpeech2ModelConfig, fs2[("model",)]),
+        "conformer": (ConformerConfig, fs2[("model", "encoder")]),
+        "variance_predictors": (VariancePredictors, fs2[("model", "variance_predictors")]),
+        "variance_predictor": (VariancePredictorConfig,
+                               fs2[("model", "variance_predictors", "pitch")]),
+        "duration_predictor": (VariancePredictorBase,
+                               fs2[("model", "variance_predictors", "duration")]),
+        "fs2_training": (FastSpeech2TrainingConfig, fs2[("training",)]),
+        "hifigan_model": (HiFiGANModelConfig, voc[("model",)]),
+        "hifigan_training": (HiFiGANTrainingConfig, voc[("training",)]),
+        "logger": (LoggerConfig, fs2[("training", "logger")]),
+        "preprocessing": (PreprocessingConfig, fs2[("preprocessing",)]),
+        "audio": (AudioConfig, fs2[("preprocessing", "audio")]),
+        "dataset": (Dataset, fs2[("preprocessing", "source_data", "*")]),
+        "text": (TextConfig, fs2[("text",)]),
+        "punctuation": (Punctuation, config.PUNCTUATION),
+    }
+
+
+@pytest.mark.parametrize("section", sorted(_sections()))
+def test_default_key_sets_equal_the_pydantic_fields(section):
+    pydantic_cls, defaults = _sections()[section]
+    assert set(defaults) == set(pydantic_cls.model_fields)
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw", "rms", "noam"])
+def test_optimizer_key_sets_equal_the_pydantic_fields(name):
+    from everyvoice_tpu.config import shared_types
+    from everyvoice_tpu_torch.config import OPTIMIZERS
+
+    cls = {"adam": shared_types.AdamOptimizer, "adamw": shared_types.AdamWOptimizer,
+           "rms": shared_types.RMSOptimizer, "noam": shared_types.NoamOptimizer}[name]
+    assert set(OPTIMIZERS[name]) == set(cls.model_fields)

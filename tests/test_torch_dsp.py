@@ -147,11 +147,36 @@ def test_resample_host(orig, new):
     assert got.shape[-1] == -(-x.shape[-1] * new // orig)
 
 
+@pytest.mark.parametrize("orig, new", [(22050, 16000), (16000, 10000), (16000, 22050),
+                                       (44100, 16000), (22050, 22050)])
+def test_resample_on_tensors(orig, new):
+    x = AUDIO[:, :5000]
+    got = resample.resample(_t(x), orig, new).numpy()
+    want = np.asarray(jax_resample.resample(jnp.asarray(x), orig, new))
+    assert got.shape == want.shape == (2, -(-x.shape[-1] * new // orig))
+    _close(got, want)
+    _close(resample.resample(_t(x[0]), orig, new).numpy(), want[0])
+    _close(got, jax_resample.resample_host(x, orig, new))
+
+
 @pytest.mark.parametrize("scale", [1.0, 0.01, 0.0])
 def test_integrated_loudness_host(scale):
     for x in (AUDIO * scale, AUDIO[0] * scale, AUDIO[:, :4000] * scale):
         got = loudness.integrated_loudness_host(x, SR)
         assert got == jax_loudness.integrated_loudness_host(x, SR)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.01, 0.0])
+def test_integrated_loudness_on_tensors(scale):
+    """The truncated-FIR loudness against the JAX device version: 1e-4 LU,
+    float32 convolutions summed in another order."""
+    for x in (AUDIO * scale, AUDIO[0] * scale, AUDIO[:, :4000] * scale):
+        got = loudness.integrated_loudness(_t(x), SR)
+        want = float(jax_loudness.integrated_loudness(jnp.asarray(x), SR))
+        if np.isinf(want):
+            assert got == want
+        else:
+            assert got == pytest.approx(want, abs=1e-4)
 
 
 @pytest.mark.parametrize("effects", [

@@ -106,3 +106,44 @@ def test_cleaners_resolve_by_name_without_the_jax_package():
     assert resolve_cleaner("lower") is lower
     with pytest.raises(NotImplementedError):
         resolve_cleaner("everyvoice_tpu.utils.original_hifigan_leaky_relu")
+
+
+@pytest.mark.parametrize("text", TEXTS)
+def test_get_missing_symbols_matches(processors, text):
+    jtp, ttp = processors
+    normalized = jtp.normalize_text(text)
+    assert ttp.normalize_text(text) == normalized
+    assert ttp.get_missing_symbols(normalized, quiet=True) == jtp.get_missing_symbols(
+        normalized, quiet=True)
+
+
+# Extended grapheme clusters: the port's standard-library segmenter against
+# the regex module's \X, on the JAX docstrings and on seeded random text
+# over scripts with marks, conjuncts, Hangul jamo, emoji and flags.
+GRAPHEME_DOCS = ["g̱an", " කෝකටත් මං වෙනදා ", " ඇන්ජලීනා ජොලී කියන්නේ ",
+                 "क्षत्रिय", "한국어 ᄒᆞᆫ글", "👨‍👩‍👧 🇨🇦🇫 👍🏽 ✌️", "a\r\nb؀c"]
+GRAPHEME_POOLS = [
+    "abcxyz \r\n\t", "".join(map(chr, range(0x300, 0x370))), "".join(map(chr, range(0xD80, 0xDF5))),
+    "".join(map(chr, range(0x900, 0x980))), "".join(map(chr, range(0x980, 0xA00))),
+    "".join(map(chr, range(0x1100, 0x1200))), "".join(map(chr, range(0xAC00, 0xAC40))),
+    "‍‌️︎­؀", "".join(map(chr, range(0x1F600, 0x1F650))),
+    "".join(map(chr, range(0x1F1E6, 0x1F200))), "".join(map(chr, range(0x1F3FB, 0x1F400))),
+    "".join(map(chr, range(0x1000, 0x10A0))), "".join(map(chr, range(0xE00, 0xE80))),
+]
+
+
+def test_graphemes_match_regex_x():
+    import random
+
+    import regex
+
+    from everyvoice_tpu.text.utils import guess_graphemes_in_text_lines as jax_lines
+    from everyvoice_tpu_torch.text.utils import graphemes, guess_graphemes_in_text_lines
+
+    rng = random.Random(0)
+    texts = GRAPHEME_DOCS + [
+        "".join(rng.choice(rng.choice(GRAPHEME_POOLS)) for _ in range(rng.randint(1, 12)))
+        for _ in range(3000)]
+    for text in texts:
+        assert graphemes(text) == regex.findall(r"\X", text), repr(text)
+    assert guess_graphemes_in_text_lines(GRAPHEME_DOCS) == jax_lines(GRAPHEME_DOCS)
