@@ -84,7 +84,21 @@ Phases, any failure of which exits nonzero:
     ``python -m everyvoice_tpu_torch --help`` and ``synthesize from-spec``
     then run as processes, the latter with no ``EVERYVOICE_DEVICE``, and
     must land on the card;
-11. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+11. StyleTTS2 text→wav serving at full width (hidden 512, style 128, the
+    512-channel AdaIN iSTFT decoder, 800 frames), which launches neither
+    kernel: seeded checkpoints with the conv context encoder and with the
+    multilingual PL-BERT (768 wide, 12 layers) through ``onchip.py``; the
+    1-, 4- and 16-text requests in bf16 through ``synthesize_text`` (5
+    diffusion steps), one at embedding scale 2 (the denoiser twice a step)
+    and one with a corpus wav as the style reference, every wav checked;
+    the PL-BERT variant's 4- and 16-text requests; one float32 synthesis
+    on the card against the CPU's (1e-3 of max|ref|); bf16 against float32
+    (the JAX package's criteria: relative RMS below 0.2, correlation and
+    style-vector correlation above 0.98); ``synthesize text-to-wav``
+    through ``cli.main`` with no ``EVERYVOICE_DEVICE``, which must land on
+    the card; and a 16-text request split by CUDA events and
+    torch.profiler;
+12. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -751,13 +765,40 @@ def split_step(trainer) -> dict:
     }
 
 
+def path_tie(logp_card, hard_card, logp_cpu, hard_cpu) -> dict:
+    """Where the card's and the CPU's hard alignments part (each a (B, T, N)
+    0/1 path, found on its own device's (B, T, N) log-probabilities, all
+    float64): the frames they part on, how far the card's path scores below
+    the CPU's own under the CPU's log-probabilities, and the most a tie
+    allows. Each path is the best on its own device, so the gap is at most
+    what the two devices' log-probabilities differ by on the cells where
+    the paths part, plus a few float32 roundings of the path's score."""
+    import numpy as np
+
+    parted = hard_card != hard_cpu
+    own = float((hard_cpu * logp_cpu).sum())
+    gap = own - float((hard_card * logp_cpu).sum())
+    bound = float((logp_card - logp_cpu).abs()[parted].sum()) + 8 * float(
+        np.finfo(np.float32).eps) * abs(own)
+    return {"frames_parted": int(parted.any(-1).sum()), "score_gap": gap, "tie_bound": bound}
+
+
 def float32_step_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> dict:
     """One float32 training step, dropout off, from the trained checkpoint's
     parameters, on one batch of 2 rows, on the card and on the CPU: losses
-    and the global gradient norm within 1e-3 relative."""
+    and the global gradient norm within 1e-3 relative.
+
+    The hard alignment is an argmax (the Viterbi path, in the JAX package
+    too), and the card's log-probabilities differ from the CPU's by about
+    1e-4, so on about one batch in twenty the two devices pick different
+    paths of equal score, a frame apart, and every loss that follows the
+    durations moves by about 1e-3. So the CPU's step takes the card's path,
+    once ``path_tie`` shows it to be a tie on the CPU."""
     from everyvoice_tpu_torch.config import fs2_training_config
     from everyvoice_tpu_torch.dataloader import FastSpeech2Dataset
     from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.models.fs2 import model as fs2_model
+    from everyvoice_tpu_torch.models.fs2.alignment import _masked_log_softmax
     from everyvoice_tpu_torch.models.layers import Dropout
     from everyvoice_tpu_torch.parallel import compress_for_transfer
     from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
@@ -772,6 +813,17 @@ def float32_step_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> d
     host = next(ds.batches(2, shuffle=False))
     host.pop("basenames")
     host = compress_for_transfer(host, ("mel", "attn_prior"))
+    viterbi = fs2_model.viterbi_alignment
+    paths: dict = {}  # device -> (the log-probabilities the path search saw, its path)
+
+    def shared_viterbi(device: str):
+        def search(attn_logprob, src_lengths, mel_lengths):
+            hard = viterbi(attn_logprob, src_lengths, mel_lengths)
+            logp = _masked_log_softmax(attn_logprob.detach().float(), src_lengths)
+            paths[device] = (logp.cpu().double(), hard.cpu().double())
+            return hard if device == "cuda" else paths["cuda"][1].float().to(hard.device)
+        return search
+
     result = {}
     for device in ("cuda", "cpu"):
         trainer = FastSpeech2Trainer(config, ds, ds, hp["lang2id"], hp["speaker2id"],
@@ -782,12 +834,20 @@ def float32_step_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> d
                 module.p = 0.0
         trainer.load_params(ckpt["state_dict"])
         trainer.opt_state = trainer.optimizer.init(trainer.params)
-        losses = trainer.train_step(to_device(host, trainer.device), 1.0)
+        fs2_model.viterbi_alignment = shared_viterbi(device)
+        try:
+            losses = trainer.train_step(to_device(host, trainer.device), 1.0)
+        finally:
+            fs2_model.viterbi_alignment = viterbi
         result[device] = {**{k: v.item() for k, v in losses.items()},
                           "grad_norm": trainer.grad_norm.item()}
+    alignment = path_tie(*paths["cuda"], *paths["cpu"])
     diffs = {k: abs(result["cuda"][k] - v) / max(abs(v), 1e-12) for k, v in result["cpu"].items()}
-    row = {"rows": 2, "card": result["cuda"], "cpu": result["cpu"], "max_rel_diff": max(diffs.values())}
+    row = {"rows": 2, "card": result["cuda"], "cpu": result["cpu"], "alignment": alignment,
+           "max_rel_diff": max(diffs.values())}
     print("train float32 card vs cpu " + json.dumps(row), flush=True)
+    if alignment["score_gap"] > alignment["tie_bound"]:
+        fail(f"the card's alignment path is not a tie of the CPU's: {alignment}")
     if row["max_rel_diff"] > 1e-3:
         fail(f"the card's float32 training step disagrees with the CPU's: {diffs}")
     return row
@@ -1807,6 +1867,208 @@ def cli_phase(root: Path, voc_path: Path, card: str) -> dict:
             "served_mel": served_mel, "row": row}
 
 
+ST2_STEPS = 5  # diffusion steps, the CLI's default
+
+
+def check_st2_wav(wav, hop: int, max_frames: int, what: str) -> None:
+    """A StyleTTS2 wav: float32, finite and a whole number of frames of
+    ``hop`` samples, at most ``max_frames`` of them."""
+    import numpy as np
+
+    if wav.dtype != np.float32 or not np.isfinite(wav).all():
+        fail(f"{what}: a wav of {wav.dtype}, or not finite")
+    if len(wav) == 0 or len(wav) % hop or len(wav) > max_frames * hop:
+        fail(f"{what}: {len(wav)} samples, not frames × {hop} (at most {max_frames} frames)")
+
+
+def serve_st2(model, config, tp, card: str, what: str, requests, **options) -> list:
+    """Each request's texts through ``synthesize_text``, one at a time as
+    the JAX package serves them: wall, audio, RTF and peak memory per
+    request, each wav checked."""
+    import torch
+
+    from everyvoice_tpu_torch.models.styletts2.synthesize import synthesize_text
+
+    rows = []
+    sr = config["preprocessing"]["audio"]["output_sampling_rate"]
+    for texts in requests:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wavs = [synthesize_text(model, config, tp, t, diffusion_steps=ST2_STEPS, **options)
+                for t in texts]
+        wall = time.perf_counter() - t0
+        for wav in wavs:
+            check_st2_wav(wav, model.hop, model.max_frames, f"{what}, {len(texts)} texts")
+        audio_s = sum(len(w) for w in wavs) / sr
+        row = {"what": what, "texts": len(texts), "frames": sum(len(w) for w in wavs) // model.hop,
+               "wall_s": wall, "audio_s": audio_s, "rtf": audio_s / wall,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "card": card}
+        print("styletts2 request " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def split_st2_request(model, config, tp, texts) -> dict:
+    """One request's texts split by CUDA events into the serving parts:
+    PL-BERT (the text context), the style diffusion, the text side (the
+    text encoder's and prosody predictor's LSTMs, durations, regulation),
+    the decoder's stack and its iSTFT head, summed over the texts; then the
+    request traced by torch.profiler (kernels, device busy time, wall)."""
+    import torch
+
+    from everyvoice_tpu_torch.models.styletts2.model import sample_style_diffusion
+    from everyvoice_tpu_torch.models.styletts2.synthesize import (
+        draw_noise,
+        encode,
+        prosody_frames,
+        synthesize_text,
+    )
+    from everyvoice_tpu_torch.utils.precision import no_tf32
+
+    parts = ("plbert_ms", "diffusion_ms", "text_side_ms", "decoder_ms", "istft_head_ms")
+    out = dict.fromkeys(parts, 0.0)
+    with torch.no_grad(), no_tf32():
+        for text in texts:
+            diffusion_noise, source_noise = draw_noise(model)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+            tokens, mask = encode(model, config, tp, text)
+            events[0].record()
+            emb = model.text_context_embedding(tokens, mask)
+            events[1].record()
+            joint = sample_style_diffusion(model.denoise_style, diffusion_noise.to(emb.device),
+                                           emb, steps=ST2_STEPS)
+            events[2].record()
+            frames, f0, _ = prosody_frames(model, tokens, mask, joint[:, model.style_dim:])
+            events[3].record()
+            x = model.decoder.stack(frames, f0, joint[:, : model.style_dim],
+                                    source_noise.to(emb.device))
+            events[4].record()
+            model.decoder.head(x, frames.shape[1] * model.hop)
+            events[5].record()
+            torch.cuda.synchronize()
+            for i, name in enumerate(parts):
+                out[name] += events[i].elapsed_time(events[i + 1])
+    traced = trace(lambda: [synthesize_text(model, config, tp, t, diffusion_steps=ST2_STEPS)
+                            for t in texts])
+    out.update({"texts": len(texts), "kernels": traced["kernels"],
+                "busy_ms": traced["busy_ms"], "traced_wall_ms": traced["wall_ms"],
+                "idle_share": (None if traced["busy_ms"] is None
+                               else 1.0 - traced["busy_ms"] / traced["wall_ms"])})
+    return out
+
+
+def styletts2_phase(root: Path, card: str) -> dict:
+    """StyleTTS2 text→wav serving at full width (phase 11): seeded
+    checkpoints (the conv context encoder, and the multilingual PL-BERT),
+    the 1-, 4- and 16-text requests in bf16 on the card, one at embedding
+    scale 2 and one with a style reference; a float32 synthesis on the card
+    against the CPU's; bf16 against float32; ``synthesize text-to-wav``
+    through ``cli.main`` with no device given; and a 16-text request split
+    into its parts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch import cli
+    from everyvoice_tpu_torch.models.styletts2 import synthesize as st2
+    from everyvoice_tpu_torch.onchip import (
+        REQUESTS,
+        TEXTS,
+        write_corpus,
+        write_styletts2_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    work = root / "styletts2"
+    gen = torch.Generator().manual_seed(3)
+    t0 = time.perf_counter()
+    plain = write_styletts2_checkpoint(work, gen)
+    with_plbert = write_styletts2_checkpoint(work, gen, plbert=True)
+    write_s = time.perf_counter() - t0
+    _, wavs, _ = write_corpus(work / "corpus", 1, seed=12)
+    reference = next(wavs.glob("*.wav"))
+
+    model, config, tp, _ = st2.load_styletts2_model(plain)  # cuda, 'auto' = bf16
+    if model.decoder.dtype != torch.bfloat16 or next(model.parameters()).device.type != "cuda":
+        fail(f"StyleTTS2 resolved to {model.decoder.dtype} on {next(model.parameters()).device}")
+    st2.synthesize_text(model, config, tp, TEXTS[0])  # warm-up: cuDNN and allocator start-up
+    rows = serve_st2(model, config, tp, card, "plain", REQUESTS)
+
+    calls = []
+    plain_denoise = model.denoise_style
+    model.denoise_style = lambda *a: calls.append(1) or plain_denoise(*a)
+    try:
+        rows += serve_st2(model, config, tp, card, "embedding scale 2", REQUESTS[:1],
+                          embedding_scale=2.0)
+    finally:
+        del model.denoise_style
+    if len(calls) != 2 * ST2_STEPS:
+        fail(f"embedding scale 2: the denoiser ran {len(calls)} times in {ST2_STEPS} steps")
+    ref_styles = st2.load_reference_style(model, reference, config)
+    rows += serve_st2(model, config, tp, card, "style reference", REQUESTS[:1],
+                      ref_styles=ref_styles, acoustic_blend=0.5, prosody_blend=0.5)
+
+    # float32 on the card against the CPU, and bf16 against float32
+    f32, _, _, _ = st2.load_styletts2_model(plain, compute_dtype="float32")
+    cpu, _, _, _ = st2.load_styletts2_model(plain, compute_dtype="float32", device="cpu")
+    text = REQUESTS[0][0]
+    wav32 = st2.synthesize_text(f32, config, tp, text)
+    wav_cpu = st2.synthesize_text(cpu, config, tp, text)
+    wav16 = st2.synthesize_text(model, config, tp, text)
+    if wav32.shape != wav_cpu.shape:
+        fail(f"float32 card vs CPU: {wav32.shape} and {wav_cpu.shape} samples")
+    card_cpu = float(np.abs(wav32 - wav_cpu).max())
+    card_cpu_tol = 1e-3 * float(np.abs(wav_cpu).max())
+    rel_rms = float(np.sqrt(np.mean((wav32 - wav16) ** 2)) / np.sqrt(np.mean(wav32 ** 2)))
+    corr = float(np.corrcoef(wav32, wav16)[0, 1])
+    style_corr = float(np.corrcoef(np.concatenate(st2.load_reference_style(f32, reference, config)),
+                                   np.concatenate(ref_styles))[0, 1])
+    precision = {"card_vs_cpu_max_abs": card_cpu, "card_vs_cpu_tol": card_cpu_tol,
+                 "bf16_rel_rms": rel_rms, "bf16_corr": corr, "bf16_style_corr": style_corr}
+    print("styletts2 precision " + json.dumps(precision), flush=True)
+    if not card_cpu <= card_cpu_tol:
+        fail(f"StyleTTS2 float32: card vs CPU {card_cpu} > {card_cpu_tol}")
+    if not (rel_rms < 0.2 and corr > 0.98 and style_corr > 0.98):
+        fail(f"StyleTTS2 bf16 vs float32: relative RMS {rel_rms}, correlation {corr}, "
+             f"style correlation {style_corr}")
+    del f32, cpu, model
+
+    # the multilingual PL-BERT variant
+    plbert_model, config, tp, _ = st2.load_styletts2_model(with_plbert)
+    if plbert_model.plbert_geometry["num_layers"] != 12:
+        fail(f"PL-BERT geometry {plbert_model.plbert_geometry}")
+    st2.synthesize_text(plbert_model, config, tp, TEXTS[0])
+    rows += serve_st2(plbert_model, config, tp, card, "PL-BERT", REQUESTS[1:])
+    split = split_st2_request(plbert_model, config, tp, REQUESTS[2])
+    split["card"] = card
+    print("styletts2 split " + json.dumps(split), flush=True)
+    del plbert_model
+
+    # the command line, with no device given
+    env = os.environ.pop("EVERYVOICE_DEVICE", None)
+    err = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["synthesize", "text-to-wav", str(plain), "-t", TEXTS[0],
+                           "-r", str(reference), "-o", str(work / "cli")])
+        cli_s = time.perf_counter() - t0
+    finally:
+        if env is not None:
+            os.environ["EVERYVOICE_DEVICE"] = env
+    devices = [line for line in err.getvalue().splitlines() if line.startswith("device: ")]
+    written = list((work / "cli" / "wav").glob("*--default--default.wav"))
+    if rc != 0 or devices != ["device: cuda"] or len(written) != 1:
+        fail(f"synthesize text-to-wav: exit {rc}, {devices}, {written}\n{err.getvalue()[-2000:]}")
+    row = {"phase_s": time.perf_counter() - t_phase, "checkpoint_write_s": write_s,
+           "cli_s": cli_s, "card": card}
+    print("styletts2 " + json.dumps(row), flush=True)
+    return {"requests": rows, "precision": precision, "split": split, "row": row}
+
+
 def timed_build(name: str) -> tuple:
     from everyvoice_tpu_torch.ops import _build
 
@@ -1869,6 +2131,7 @@ def main() -> int:
         phone = phone_voice_phase(tmp, voc_path, vocoder["ckpt"], char_step_ms,
                                   served["requests"], card)
         cli_run = cli_phase(tmp, voc_path, card)
+        styletts2_phase(tmp, card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{

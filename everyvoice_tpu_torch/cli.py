@@ -5,6 +5,7 @@ with the same spellings, defaults and exit codes, on ``argparse``.
     python -m everyvoice_tpu_torch preprocess text-to-spec config/everyvoice-text-to-spec.yaml
     python -m everyvoice_tpu_torch train text-to-spec config/everyvoice-text-to-spec.yaml
     python -m everyvoice_tpu_torch synthesize from-text last.ckpt -t "Hello." --vocoder-path v.ckpt
+    python -m everyvoice_tpu_torch synthesize text-to-wav styletts2.ckpt -t "Hello." -r ref.wav
 
 Config files are the JAX package's YAML or JSON project files
 (``config_files.load_config_from_path``); ``-c key.path=value`` overrides
@@ -32,7 +33,7 @@ OUTPUT_TYPES = ("wav", "spec", "textgrid", "readalong-xml", "readalong-html")
 STEPS = ("audio", "text", "pfs", "spec", "attn", "energy", "pitch", "ood")
 ROADMAP_ITEMS = {
     "device_audio": "queue 1, 'The rest' (the preprocessor's device audio path)",
-    "styletts2": "queue 1, 'StyleTTS2'",
+    "styletts2": "queue 1, 'StyleTTS2 training'",
     "parallelism": "queue 1, 'Parallelism'",
 }
 
@@ -136,13 +137,10 @@ def _filelist_texts(filelist) -> tuple:
     return rows, [r.get("characters") or r.get("text") or "" for r in rows]
 
 
-def synthesize_from_text(args) -> int:
-    from everyvoice_tpu_torch.models.fs2.synthesize import (
-        Synthesizer,
-        synthesize_teacher_forced_specs,
-    )
-    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint_header
-
+def _request_texts(args) -> tuple:
+    """(texts, filelist rows or None, basenames or None): the ``-t`` texts,
+    then the filelist's; the basenames are the filelist's, matched to the
+    texts by position as the JAX CLI matches them."""
     texts = list(args.text or ())
     rows = basenames = None
     if args.filelist is not None:
@@ -151,12 +149,58 @@ def synthesize_from_text(args) -> int:
         basenames = [r.get("basename") for r in rows]
     if not texts:
         raise CLIError("Provide --text or --filelist")
+    return texts, rows, basenames
+
+
+def _model_kind(path) -> str:
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint_header
+
     try:
-        model_kind = load_checkpoint_header(args.model_path)["model_info"]["name"]
+        return load_checkpoint_header(path)["model_info"]["name"]
     except ValueError as e:
         raise CLIError(str(e)) from None
-    if model_kind == "StyleTTS2Module":
-        raise not_ported("Synthesis from a StyleTTS2 checkpoint", "styletts2")
+
+
+def _synthesize_styletts2(model_path, texts, basenames, output_dir, language, speaker,
+                          reference=None, **options) -> None:
+    """Each text through StyleTTS2 into ``<output_dir>/wav/<base>--<speaker>
+    --<language>.wav``, one at a time."""
+    from everyvoice_tpu_torch.dsp import write_wav
+    from everyvoice_tpu_torch.models.styletts2.synthesize import (
+        load_reference_style,
+        load_styletts2_model,
+        synthesize_text,
+    )
+    from everyvoice_tpu_torch.utils import slugify, truncate_basename
+
+    model, config, text_processor, _ = load_styletts2_model(model_path, device=_device())
+    ref_styles = (load_reference_style(model, reference, config)
+                  if reference is not None else None)
+    out = Path(output_dir) / "wav"
+    out.mkdir(parents=True, exist_ok=True)
+    sr = config["preprocessing"]["audio"]["output_sampling_rate"]
+    for i, text in enumerate(texts):
+        wav = synthesize_text(model, config, text_processor, text, language=language,
+                              ref_styles=ref_styles, **options)
+        base = (basenames[i] if basenames and i < len(basenames)
+                else truncate_basename(slugify(text)))
+        path = out / f"{base}--{speaker}--{language or 'default'}.wav"
+        write_wav(path, wav, sr)
+        print(str(path))
+
+
+def synthesize_from_text(args) -> int:
+    from everyvoice_tpu_torch.models.fs2.synthesize import (
+        Synthesizer,
+        synthesize_teacher_forced_specs,
+    )
+
+    texts, rows, basenames = _request_texts(args)
+    if _model_kind(args.model_path) == "StyleTTS2Module":
+        # StyleTTS2 makes wavs itself, with the sampler's defaults.
+        _synthesize_styletts2(args.model_path, texts, basenames, args.output_dir,
+                              args.language, args.speaker or "default")
+        return 0
     output_types = tuple(args.output_types or ("wav",))
     device = _device()
     synth = Synthesizer(args.model_path, vocoder_checkpoint=args.vocoder_path, device=device)
@@ -179,6 +223,20 @@ def synthesize_from_text(args) -> int:
                                     language=args.language, speaker=args.speaker,
                                     basenames=basenames):
         print(str(path))
+    return 0
+
+
+def synthesize_text_to_wav(args) -> int:
+    name = _model_kind(args.model_path)
+    if name != "StyleTTS2Module":
+        raise CLIError(f"synthesize text-to-wav takes a StyleTTS2 checkpoint, not {name} — "
+                       "use `synthesize from-text` for FastSpeech2 models.")
+    texts, _, basenames = _request_texts(args)
+    _synthesize_styletts2(
+        args.model_path, texts, basenames, args.output_dir, args.language, "default",
+        reference=args.reference, diffusion_steps=args.diffusion_steps,
+        embedding_scale=args.embedding_scale, acoustic_blend=args.acoustic_blend,
+        prosody_blend=args.prosody_blend, seed=args.seed)
     return 0
 
 
@@ -422,6 +480,28 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--style-reference", type=_existing, default=None,
                    help="Reference wav for GST style conditioning.")
     k.set_defaults(run=synthesize_from_text)
+    k = kinds.add_parser("text-to-wav", help="Text → wav end to end with a StyleTTS2 "
+                         "checkpoint.")
+    k.add_argument("model_path", type=_existing)
+    k.add_argument("-t", "--text", action="append", help="Text(s) to synthesize.")
+    k.add_argument("-f", "--filelist", type=_existing, default=None)
+    k.add_argument("-l", "--language", default=None)
+    k.add_argument("-r", "--reference", type=_existing, default=None,
+                   help="Reference wav whose encoded style sets the speaker identity "
+                   "(blended with the diffusion-sampled style).")
+    k.add_argument("--diffusion-steps", default=5, type=int)
+    k.add_argument("--embedding-scale", default=1.0, type=float,
+                   help="Classifier-free guidance scale for the style diffusion.")
+    k.add_argument("--acoustic-blend", default=0.5, type=float,
+                   help="0=all reference acoustic style, 1=all sampled.")
+    k.add_argument("--prosody-blend", default=0.5, type=float,
+                   help="0=all reference prosodic style, 1=all sampled.")
+    k.add_argument("--seed", default=0, type=int,
+                   help="Seeds the style diffusion's noise (a torch.Generator's).")
+    k.add_argument("-O", "--output-type", dest="output_types", action="append", choices=("wav",),
+                   help="StyleTTS2 is end-to-end; wav is the only output type.")
+    k.add_argument("-o", "--output-dir", type=Path, default=Path("synthesis_output"))
+    k.set_defaults(run=synthesize_text_to_wav)
     k = kinds.add_parser("from-spec", help="Mel spectrogram files → wav (vocoder only).")
     k.add_argument("model_path", type=_existing)
     k.add_argument("-i", "--input-dir", type=_existing,

@@ -10,6 +10,9 @@ the training sections of FastSpeech2 and HiFiGAN with their optimizer and
 logger (``fs2_training_config`` and ``hifigan_training_config``, whose
 ``model_checkpoint_dump`` is the JAX package's
 ``FastSpeech2Config``/``HiFiGANConfig.model_checkpoint_dump``).
+``styletts2_config`` fills a whole StyleTTS2 config
+(``models/styletts2/config.py``'s ``StyleTTS2Config``): model, training,
+preprocessing, text and the pretrained components' section.
 """
 
 from __future__ import annotations
@@ -228,6 +231,99 @@ HIFIGAN_TRAINING = {
     "use_weighted_sampler": False,
     "finetune": False,
 }
+# StyleTTS2 (models/styletts2/config.py). The decoder section's
+# upsample_initial_channel and resblock fields are not read by the model:
+# StyleTTS2Module.from_config passes the decoder none of them.
+ST2_DECODER = {
+    "resblock": "1",
+    "upsample_rates": [8, 8],
+    "upsample_kernel_sizes": [16, 16],
+    "upsample_initial_channel": 512,
+    "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    "activation_function": "everyvoice_tpu.utils.original_hifigan_leaky_relu",
+    "istft_layer": True,
+    "msd_layers": 3,
+    "mpd_layers": [2, 3, 5, 7, 11],
+    "gen_istft_n_fft": 16,
+    "gen_istft_hop_size": 4,
+}
+ST2_SLM = {"model": "microsoft/wavlm-base-plus", "sr": 16000, "hidden": 768, "nlayers": 13,
+           "initial_channel": 64}
+ST2_DIFFUSION_TRANSFORMER = {"num_layers": 3, "num_heads": 8, "head_features": 64,
+                             "multiplier": 2}
+ST2_DIFFUSION_DIST = {"sigma_data": 0.2, "estimate_sigma_data": True, "mean": -3.0, "std": 1.0}
+ST2_DIFFUSION = {"embedding_mask_proba": 0.1, "transformer": ST2_DIFFUSION_TRANSFORMER,
+                 "dist": ST2_DIFFUSION_DIST}
+ST2_MODEL = {
+    "multispeaker": False,
+    "multilingual": False,
+    "language_embedding_dim": 64,
+    "target_text_representation_level": "characters",
+    "dim_in": 64,
+    "hidden_dim": 512,
+    "max_conv_dim": 512,
+    "n_layer": 3,
+    "max_dur": 50,
+    "style_dim": 128,
+    "dropout": 0.2,
+    "decoder": ST2_DECODER,
+    "slm": ST2_SLM,
+    "diffusion": ST2_DIFFUSION,
+}
+ST2_OPTIMIZER = {"lr": 1e-4, "bert_lr": 1e-5, "ft_lr": 1e-5}
+ST2_LOSSES = {
+    "lambda_mel": 5.0, "lambda_gen": 1.0, "lambda_slm": 1.0, "lambda_mono": 1.0,
+    "lambda_s2s": 1.0, "tma_epoch": 50, "lambda_f0": 1.0, "lambda_norm": 1.0,
+    "lambda_dur": 1.0, "lambda_ce": 20.0, "lambda_sty": 1.0, "lambda_diff": 1.0,
+    "diff_epoch": 20, "joint_epoch": 50,
+}
+ST2_SLMADV = {"min_len": 100, "max_len": 500, "batch_percentage": 0.5, "iter": 10,
+              "thresh": 5.0, "scale": 0.01, "sig": 1.5}
+ST2_OOD_HF = {"repo_id": None, "filename": "ood.txt", "revision": None}
+ST2_OOD_SOURCE = {"local_path": None, "hf": None, "text_representation": "characters"}
+ST2_TRAINING = {
+    **BASE_TRAINING,
+    "batch_size": 2,
+    "save_top_k_ckpts": 1,
+    "epochs_1st": 200,
+    "epochs_2nd": 100,
+    "max_len": 800,
+    "decoder_segment_frames": 320,
+    "first_stage_path": "checkpoints/stage-1-last.ckpt",
+    "second_stage_load_pretrained": True,
+    "load_only_params": False,
+    "root_path": ".",
+    "ood_raw_data": {},
+    "use_validation_as_ood": False,
+    "OOD_min_length": 50,
+    "optimizer": ST2_OPTIMIZER,
+    "losses": ST2_LOSSES,
+    "slmadv": ST2_SLMADV,
+}
+# The frozen 178-symbol table of the published pretrained components
+# (PL-BERT, the ASR aligner): a symbol's index is its embedding row.
+PRETRAINED_SYMBOL_TABLE = (
+    ["$"]
+    + list(';:,.!?¡¿—…"«»“” ')
+    + list("ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz")
+    + list(
+        "ɑɐɒæɓʙβɔɕçɗɖðʤəɘɚɛɜɝɞɟʄɡɠɢʛɦɧħɥʜɨɪʝɭɬɫɮʟɱɯɰŋɳɲɴøɵɸθœɶʘɹɺɾɻʀʁɽʂʃʈʧ"
+        "ʉʊʋⱱʌɣɤʍχʎʏʑʐʒʔʡʕʢǀǁǂǃˈˌːˑʼʴʰʱʲʷˠˤ˞↓↑→↗↘'̩'ᵻ"
+    )
+)
+ST2_PRETRAINED_F0 = {"repo_id": "everyvoice/styletts2-jdc-f0", "filename": "bst.t7",
+                     "local_path": None}
+ST2_PRETRAINED_ASR = {"repo_id": "everyvoice/styletts2-asr-aligner",
+                      "checkpoint_filename": "epoch_00080.pth", "config_filename": "config.yml",
+                      "local_checkpoint": None, "local_config": None}
+ST2_PRETRAINED_PLBERT = {"repo_id": "papercup-ai/multilingual-pl-bert",
+                         "checkpoint_filename": "step_1100000.t7",
+                         "config_filename": "config.yml", "local_checkpoint": None,
+                         "local_config": None}
+ST2_PRETRAINED = {"f0": ST2_PRETRAINED_F0, "asr": ST2_PRETRAINED_ASR,
+                  "plbert": ST2_PRETRAINED_PLBERT,
+                  "pretrained_symbols": PRETRAINED_SYMBOL_TABLE}
 # Path-typed fields: the JAX package's checkpoint dump drops a Path value
 # (a None stays). (section keys, field) pairs; "*" is every dataset.
 PATH_FIELDS = (
@@ -309,6 +405,40 @@ def hifigan_training_config(config: dict) -> dict:
                              f"divide fft_hop_size={hop}.")
     elif product != hop:
         raise ValueError(f"prod(upsample_rates)={product} must equal fft_hop_size={hop}.")
+    return out
+
+
+def styletts2_config(config: dict) -> dict:
+    """A StyleTTS2 config (a checkpoint header's or a project file's) with
+    every default of the JAX package's ``StyleTTS2Config`` filled in:
+    model, training (optimizer, losses, SLM-adversarial settings, each
+    out-of-domain text source), preprocessing (audio, datasets), text and
+    the pretrained components. Raises where that validator does: no
+    ``contact``, or a dataset without permission."""
+    if "contact" not in config:
+        raise ValueError(
+            "EveryVoice models require contact information; please add a "
+            "'contact' section (contact_name, contact_email)."
+        )
+    pre = preprocessing_config(config)
+    model = merge_defaults(ST2_MODEL, config.get("model"))
+    if not model["decoder"]["activation_function"]:
+        model["decoder"]["activation_function"] = ST2_DECODER["activation_function"]
+    training = merge_defaults(ST2_TRAINING, config.get("training"))
+    for label, source in training["ood_raw_data"].items():
+        source = merge_defaults(ST2_OOD_SOURCE, source)
+        if source["hf"] is not None:
+            source["hf"] = merge_defaults(ST2_OOD_HF, source["hf"])
+        training["ood_raw_data"][label] = source
+    out = {"VERSION": "1.0", **config}
+    for key in ("model", "training", "preprocessing", "text"):
+        out.setdefault(f"path_to_{key}_config_file", None)
+    out["model"] = model
+    out["training"] = training
+    out["preprocessing"] = {"VERSION": "1.0", "path_to_audio_config_file": None,
+                            **pre["preprocessing"]}
+    out["text"] = pre["text"]
+    out["pretrained"] = merge_defaults(ST2_PRETRAINED, config.get("pretrained"))
     return out
 
 

@@ -5,9 +5,9 @@ them, into the plain dicts the port's entry points take.
     config = load_config_from_path("text-to-spec", "config/everyvoice-text-to-spec.yaml",
                                    overrides=["training.max_steps=20"])
 
-``kind`` is ``text-to-spec`` (FastSpeech2), ``spec-to-wav`` (HiFiGAN) or
-``preprocessing`` (a shared data config). A ``.json`` file reads as JSON,
-anything else as YAML. The steps are those of
+``kind`` is ``text-to-spec`` (FastSpeech2), ``spec-to-wav`` (HiFiGAN),
+``text-to-wav`` (StyleTTS2) or ``preprocessing`` (a shared data config). A
+``.json`` file reads as JSON, anything else as YAML. The steps are those of
 ``PartialLoadConfig.load_config_from_path`` and ``update_config``:
 
 1. each ``path_to_<key>_config_file`` of the kind's partial keys is loaded
@@ -21,7 +21,8 @@ anything else as YAML. The steps are those of
    ``training.vocoder_path``) resolve against the top-level file's
    directory, the partials' paths too;
 4. the defaults are filled in (``config.fs2_training_config``,
-   ``hifigan_training_config``, ``preprocessing_config``), then the
+   ``hifigan_training_config``, ``styletts2_config``,
+   ``preprocessing_config``), then the
    ``-c key.path=value`` overrides merge in (an integer part indexes a
    list), and the whole is checked again;
 5. a key that is not a field of its section raises, naming it, as
@@ -55,6 +56,22 @@ from everyvoice_tpu_torch.config import (
     OPTIMIZERS,
     PREPROCESSING,
     PUNCTUATION,
+    ST2_DECODER,
+    ST2_DIFFUSION,
+    ST2_DIFFUSION_DIST,
+    ST2_DIFFUSION_TRANSFORMER,
+    ST2_LOSSES,
+    ST2_MODEL,
+    ST2_OOD_HF,
+    ST2_OOD_SOURCE,
+    ST2_OPTIMIZER,
+    ST2_PRETRAINED,
+    ST2_PRETRAINED_ASR,
+    ST2_PRETRAINED_F0,
+    ST2_PRETRAINED_PLBERT,
+    ST2_SLM,
+    ST2_SLMADV,
+    ST2_TRAINING,
     TEXT,
     VARIANCE_PREDICTOR,
     apply_overrides,
@@ -62,15 +79,19 @@ from everyvoice_tpu_torch.config import (
     hifigan_training_config,
     merge_defaults,
     preprocessing_config,
+    styletts2_config,
 )
 from everyvoice_tpu_torch.utils import load_config_file
 
-KINDS = ("text-to-spec", "spec-to-wav", "preprocessing")
+KINDS = ("text-to-spec", "spec-to-wav", "text-to-wav", "preprocessing")
 PARTIAL_KEYS = {
     "text-to-spec": ("model", "training", "preprocessing", "text"),
     "spec-to-wav": ("model", "training", "preprocessing"),
+    "text-to-wav": ("model", "training", "preprocessing", "text"),
     "preprocessing": ("audio",),
 }
+FILL = {"text-to-spec": fs2_training_config, "spec-to-wav": hifigan_training_config,
+        "text-to-wav": styletts2_config}
 CONTACT_FIELDS = {"contact_name": None, "contact_email": None}
 EMAIL = re.compile(r"^[^@\s]+@[^@\s]+\.[^@\s]+$")
 BOUNDARIES = {"strong": "!?.", "weak": ":;,"}
@@ -117,6 +138,31 @@ SCHEMA = {
         ("preprocessing", "audio"): AUDIO,
         ("preprocessing", "source_data", "*"): DATASET,
     },
+    "text-to-wav": {
+        (): {**_top(PARTIAL_KEYS["text-to-wav"]), "pretrained": None},
+        ("contact",): CONTACT_FIELDS,
+        ("model",): ST2_MODEL,
+        ("model", "decoder"): ST2_DECODER,
+        ("model", "slm"): ST2_SLM,
+        ("model", "diffusion"): ST2_DIFFUSION,
+        ("model", "diffusion", "transformer"): ST2_DIFFUSION_TRANSFORMER,
+        ("model", "diffusion", "dist"): ST2_DIFFUSION_DIST,
+        ("training",): ST2_TRAINING,
+        ("training", "logger"): LOGGER,
+        ("training", "optimizer"): ST2_OPTIMIZER,
+        ("training", "losses"): ST2_LOSSES,
+        ("training", "slmadv"): ST2_SLMADV,
+        ("training", "ood_raw_data", "*"): ST2_OOD_SOURCE,
+        ("training", "ood_raw_data", "*", "hf"): ST2_OOD_HF,
+        ("preprocessing",): PREPROCESSING_SECTION,
+        ("preprocessing", "audio"): AUDIO,
+        ("preprocessing", "source_data", "*"): DATASET,
+        ("text",): TEXT,
+        ("pretrained",): ST2_PRETRAINED,
+        ("pretrained", "f0"): ST2_PRETRAINED_F0,
+        ("pretrained", "asr"): ST2_PRETRAINED_ASR,
+        ("pretrained", "plbert"): ST2_PRETRAINED_PLBERT,
+    },
     "preprocessing": {
         ("preprocessing",): PREPROCESSING_SECTION,
         ("preprocessing", "audio"): AUDIO,
@@ -140,6 +186,7 @@ CALLABLES = (
     (("training",), "filelist_loader"),
     (("training", "logger"), "sub_dir_callable"),
     (("model",), "activation_function"),
+    (("model", "decoder"), "activation_function"),
 )
 
 
@@ -148,14 +195,17 @@ class ConfigError(ValueError):
 
 
 def _sections(tree, path: tuple, at: tuple = ()):
-    """(location, node) of every node of ``tree`` at ``path``."""
+    """(location, node) of every node of ``tree`` at ``path``; "*" is each
+    item of a list or each value of a mapping."""
     if not path:
         yield at, tree
         return
     head, rest = path[0], path[1:]
     if head == "*":
-        for i, child in enumerate(tree if isinstance(tree, list) else []):
-            yield from _sections(child, rest, at + (str(i),))
+        items = (enumerate(tree) if isinstance(tree, list)
+                 else tree.items() if isinstance(tree, dict) else ())
+        for key, child in items:
+            yield from _sections(child, rest, at + (str(key),))
     elif isinstance(tree, dict) and isinstance(tree.get(head), (dict, list)):
         yield from _sections(tree[head], rest, at + (head,))
 
@@ -282,7 +332,7 @@ def _check_extra(config: dict, kind: str) -> None:
                     f"Extra inputs are not permitted: {', '.join(map(str, extra))} "
                     f"(in {where}); check the spelling against the schema")
     optimizer = (config.get("training") or {}).get("optimizer")
-    if isinstance(optimizer, dict):
+    if isinstance(optimizer, dict) and kind != "text-to-wav":
         fields = OPTIMIZERS.get(optimizer.get("name"), {})
         extra = sorted(set(optimizer) - set(fields))
         if extra:
@@ -328,8 +378,7 @@ def _validate(config: dict, kind: str) -> dict:
             out["preprocessing"] = merge_defaults(PREPROCESSING_SECTION, out["preprocessing"])
         else:
             _check_contact(config)
-            fill = fs2_training_config if kind == "text-to-spec" else hifigan_training_config
-            out = fill(config)
+            out = FILL[kind](config)
             _check_training(out["training"])
     except ConfigError:
         raise
@@ -342,7 +391,7 @@ def _validate(config: dict, kind: str) -> dict:
         for _, node in _sections(out, section):
             if isinstance(node, dict) and field in node:
                 node[field] = _callable_name(node[field])
-    if kind == "text-to-spec":
+    if "text" in PARTIAL_KEYS[kind]:
         out["text"] = _text_section(out["text"])
     return out
 
@@ -350,8 +399,8 @@ def _validate(config: dict, kind: str) -> dict:
 def load_config_from_path(kind: str, path: Path | str, overrides: Sequence[str] = ()) -> dict:
     """The ``kind`` config in the file at ``path`` with its partials, its
     paths resolved, its defaults and the ``-c`` ``overrides``: the dict
-    ``fs2_training_config``, ``hifigan_training_config`` or
-    ``preprocessing_config`` returns. Raises ``ConfigError`` where the JAX
+    ``fs2_training_config``, ``hifigan_training_config``,
+    ``styletts2_config`` or ``preprocessing_config`` returns. Raises ``ConfigError`` where the JAX
     package's loader raises."""
     if kind not in KINDS:
         raise ValueError(f"Unknown config kind {kind!r}: expected one of {KINDS}")

@@ -15,7 +15,13 @@ the tables below pair each leaf with a torch parameter and a layout change:
   MPD's (k, 1) kernels, GST's 3x3 ones);
 - attention query/key/value kernels (dim, heads, head_dim) and biases
   (heads, head_dim) ↔ Linear (heads·head_dim, dim) and (heads·head_dim,);
-  the out kernel (heads, head_dim, dim) ↔ Linear (dim, heads·head_dim).
+  the out kernel (heads, head_dim, dim) ↔ Linear (dim, heads·head_dim);
+- an ``OptimizedLSTMCell``'s per-gate denses (``ii/if/ig/io`` kernels with
+  no bias, ``hi/hf/hg/ho`` kernels and biases) ↔ ``nn.LSTM``'s packed
+  ``weight_ih_l0``/``weight_hh_l0``/``bias_hh_l0`` in gate order i, f, g,
+  o; ``bias_ih_l0`` is zero from flax and added into the hidden biases
+  back to it;
+- a snake's ``alpha`` (1, 1, C) ↔ (1, C, 1).
 
 ``flax_to_torch`` consumes every leaf and raises on a leaf it did not use or
 a torch parameter it did not fill. FastSpeech2's ``alignment`` subtree (the
@@ -29,6 +35,15 @@ lacked.
 ``torch_to_flax`` is the inverse; it lets a machine without JAX write
 checkpoints in the JAX package's layout. Both also map an optimizer's
 moments, which have the parameters' shapes.
+
+StyleTTS2's generator stack (``models/styletts2``) maps to the JAX
+``StyleTTS2Module``'s ``{"params": ...}``: text and context encoders (or
+PL-BERT and its projection), the TMA aligner, both style encoders, the
+prosody predictor, the AdaIN decoder, the denoiser and the projections. An
+``asr`` checkpoint's ``text_aligner`` subtree is not a torch parameter: the
+serving loader keeps it aside (``StyleTTS2.text_aligner_params``) and
+``torch_to_flax`` writes it back. (StyleTTS2's tables serve parameters:
+its optimizer moments come with the training slice.)
 
 HiFiGAN's generator maps to ``{"params": ...}`` (``ResBlock1_j`` or
 ``ResBlock2_j``; the post conv or the iSTFT head as ``Conv_1``), its
@@ -55,10 +70,23 @@ from everyvoice_tpu_torch.models.hifigan.model import (
 from everyvoice_tpu_torch.models.layers import (
     ConformerStack,
     GlobalStyleTokens,
+    MultiHeadAttention,
     VariancePredictor,
 )
+from everyvoice_tpu_torch.models.styletts2.layers import (
+    AdaIN1d,
+    AdaINResBlock1,
+    DiffusionDenoiser,
+    ProsodyPredictor,
+    StyleDecoder,
+    StyleEncoder,
+    TextEncoder,
+)
+from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
+from everyvoice_tpu_torch.models.styletts2.plbert import PLBERT
 
 OPTIONAL_SUBTREES = ("alignment", "gst")
+LSTM_GATES = ("i", "f", "g", "o")  # nn.LSTM's packing order
 
 
 # Each kind: (flax → torch, torch → flax given the flax shape's head count).
@@ -77,6 +105,8 @@ def _to_torch(arr: np.ndarray, kind: str) -> np.ndarray:
         return arr.reshape(-1)
     if kind == "mha_out":
         return arr.reshape(-1, arr.shape[-1]).T
+    if kind == "alpha":
+        return arr.transpose(0, 2, 1)
     return arr
 
 
@@ -95,7 +125,23 @@ def _to_flax(arr: np.ndarray, kind: str, heads: int) -> np.ndarray:
         return arr.reshape(heads, -1)
     if kind == "mha_out":
         return arr.T.reshape(heads, -1, arr.shape[0])
+    if kind == "alpha":
+        return arr.transpose(0, 2, 1)
     return arr
+
+
+def _leaf_paths(fpath: tuple, kind: str) -> list:
+    """The flax leaves one torch tensor holds: its own, or an LSTM gate's
+    four (none for the input bias, which flax does not have)."""
+    if kind == "lstm_ih":
+        return [fpath + (f"i{g}", "kernel") for g in LSTM_GATES]
+    if kind == "lstm_hh":
+        return [fpath + (f"h{g}", "kernel") for g in LSTM_GATES]
+    if kind == "lstm_bias":
+        return [fpath + (f"h{g}", "bias") for g in LSTM_GATES]
+    if kind == "lstm_bias_ih":
+        return []
+    return [fpath]
 
 
 def _dense(fpath, tkey):
@@ -115,6 +161,13 @@ def _norm(fpath, tkey):
 
 def _embed(fpath, tkey):
     return [(fpath + ("embedding",), f"{tkey}.weight", "plain")]
+
+
+def _lstm(fpath, tkey):
+    return [(fpath, f"{tkey}.weight_ih_l0", "lstm_ih"),
+            (fpath, f"{tkey}.weight_hh_l0", "lstm_hh"),
+            (fpath, f"{tkey}.bias_hh_l0", "lstm_bias"),
+            (fpath, f"{tkey}.bias_ih_l0", "lstm_bias_ih")]
 
 
 def _mha(fpath, tkey):
@@ -253,9 +306,139 @@ def _msd_table(model: MultiScaleDiscriminator, p=("params",), t="") -> list:
             for row in _disc_convs(p + (f"ScaleDiscriminator_{i}",), f"{t}discriminators.{i}", disc)]
 
 
+# StyleTTS2. Each helper takes the flax path of its module and the torch
+# prefix of its parameters ("" or "name.").
+def _st2_text_encoder(fpath, t, enc: TextEncoder) -> list:
+    out = _embed(fpath + ("Embed_0",), f"{t}embed")
+    for i in range(len(enc.convs)):
+        out += _wn(fpath + (f"Conv_{i}",), fpath + (f"WeightNorm_{i}", f"Conv_{i}/kernel/scale"),
+                   f"{t}convs.{i}")
+        out += _norm(fpath + (f"LayerNorm_{i}",), f"{t}norms.{i}")
+    return (out + _lstm(fpath + ("OptimizedLSTMCell_0",), f"{t}lstm_fwd")
+            + _lstm(fpath + ("OptimizedLSTMCell_1",), f"{t}lstm_bwd"))
+
+
+def _st2_style_encoder(fpath, t, enc: StyleEncoder) -> list:
+    out = []
+    for i in range(len(enc.convs)):
+        out += [(fpath + (f"Conv_{i}", "kernel"), f"{t}convs.{i}.weight", "conv2d"),
+                (fpath + (f"Conv_{i}", "bias"), f"{t}convs.{i}.bias", "plain")]
+    return out + _dense(fpath + ("Dense_0",), f"{t}head")
+
+
+def _st2_predictor(fpath, t) -> list:
+    out = _lstm(fpath + ("OptimizedLSTMCell_0",), f"{t}lstm_fwd")
+    out += _lstm(fpath + ("OptimizedLSTMCell_1",), f"{t}lstm_bwd")
+    out += _dense(fpath + ("AdaIN1d_0", "Dense_0"), f"{t}adain.fc")
+    # Dense_1 is f0's output layer: flax names the outer Dense of
+    # Dense(1)(leaky_relu(Dense(hidden)(y))) first.
+    for i, name in enumerate(("duration", "f0_out", "f0_hidden", "energy_out", "energy_hidden")):
+        out += _dense(fpath + (f"Dense_{i}",), f"{t}{name}")
+    return out
+
+
+def _st2_resblock(fpath, t, block: AdaINResBlock1) -> list:
+    out = []
+    for u, d in enumerate(block.dilations):
+        out += _dense(fpath + (f"AdaIN1d_{2 * u}", "Dense_0"), f"{t}adain1.{u}.fc")
+        out += _dense(fpath + (f"AdaIN1d_{2 * u + 1}", "Dense_0"), f"{t}adain2.{u}.fc")
+        for k, convs in ((2 * u, "convs1"), (2 * u + 1, "convs2")):
+            out += _wn(fpath + (f"Conv_{k}",), fpath + (f"WeightNorm_{k}", f"Conv_{k}/kernel/scale"),
+                       f"{t}{convs}.{u}")
+        out += [(fpath + (f"alpha1_{d}",), f"{t}alpha1.{u}", "alpha"),
+                (fpath + (f"alpha2_{d}",), f"{t}alpha2.{u}", "alpha")]
+    return out
+
+
+def _st2_decoder(fpath, t, dec: StyleDecoder) -> list:
+    n = len(dec.ups)
+    out = _wn(fpath + ("Conv_0",), fpath + ("WeightNorm_0", "Conv_0/kernel/scale"),
+              f"{t}conv_pre")
+    for i in range(n):
+        name = f"ConvTranspose_{i}"
+        out += _wn(fpath + (name,), fpath + (f"WeightNorm_{1 + i}", f"{name}/kernel/scale"),
+                   f"{t}ups.{i}", "conv_transpose")
+        out += _conv(fpath + (f"Conv_{1 + i}",), f"{t}source_convs.{i}")
+    out += _wn(fpath + (f"Conv_{1 + n}",),
+               fpath + (f"WeightNorm_{1 + n}", f"Conv_{1 + n}/kernel/scale"), f"{t}conv_post")
+    for j, block in enumerate(dec.resblocks):
+        out += _st2_resblock(fpath + (f"AdaINResBlock1_{j}",), f"{t}resblocks.{j}.", block)
+    return out
+
+
+def _st2_denoiser(fpath, t, den: DiffusionDenoiser) -> list:
+    out = []
+    for i, name in enumerate(("style_in", "sigma_in", "text_in")):
+        out += _dense(fpath + (f"Dense_{i}",), f"{t}{name}")
+    for i in range(len(den.attns)):
+        out += _norm(fpath + (f"LayerNorm_{2 * i}",), f"{t}norms1.{i}")
+        out += _mha(fpath + (f"MultiHeadDotProductAttention_{i}",), f"{t}attns.{i}")
+        out += _norm(fpath + (f"LayerNorm_{2 * i + 1}",), f"{t}norms2.{i}")
+        out += _dense(fpath + (f"Dense_{3 + 2 * i}",), f"{t}ff1.{i}")
+        out += _dense(fpath + (f"Dense_{4 + 2 * i}",), f"{t}ff2.{i}")
+    return out + _dense(fpath + (f"Dense_{3 + 2 * len(den.attns)}",), f"{t}out")
+
+
+def _plbert(fpath, t) -> list:
+    out = [(fpath + (name,), f"{t}{name}", "plain")
+           for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")]
+    out += _norm(fpath + ("embed_norm",), f"{t}embed_norm")
+    out += _dense(fpath + ("embedding_hidden_mapping_in",), f"{t}embedding_hidden_mapping_in")
+    for name in ("query", "key", "value", "attn_out", "ffn", "ffn_output"):
+        out += _dense(fpath + ("shared_layer", name), f"{t}shared_layer.{name}")
+    for name in ("attn_norm", "full_norm"):
+        out += _norm(fpath + ("shared_layer", name), f"{t}shared_layer.{name}")
+    return out
+
+
+def _st2_table(model: StyleTTS2) -> list:
+    p = ("params",)
+    out = _st2_text_encoder(p + ("text_encoder",), "text_encoder.", model.text_encoder)
+    if model.plbert_geometry is not None:
+        out += _plbert(p + ("plbert_encoder",), "plbert_encoder.")
+        out += _dense(p + ("plbert_proj",), "plbert_proj")
+    else:
+        out += _st2_text_encoder(p + ("context_encoder",), "context_encoder.",
+                                 model.context_encoder)
+    if model.asr_geometry is None:
+        for i, name in enumerate(("key_in", "key_out", "query_in", "query_mid", "query_out")):
+            out += _conv(p + ("tma_aligner", f"Conv_{i}"), f"tma_aligner.{name}")
+    for name in ("acoustic_style_encoder", "prosodic_style_encoder"):
+        out += _st2_style_encoder(p + (name,), f"{name}.", getattr(model, name))
+    out += _st2_predictor(p + ("predictor",), "predictor.")
+    out += _st2_decoder(p + ("decoder",), "decoder.", model.decoder)
+    out += _st2_denoiser(p + ("denoiser",), "denoiser.", model.denoiser)
+    out += _dense(p + ("frame_proj",), "frame_proj")
+    out += _dense(p + ("f0_embed",), "f0_embed")
+    if model.multilingual:
+        out += _embed(p + ("language_embed",), "language_embed")
+        out += _dense(p + ("language_proj",), "language_proj")
+    return out
+
+
 def _table(model) -> list:
     if isinstance(model, FastSpeech2):
         return _fs2_table(model)
+    if isinstance(model, StyleTTS2):
+        return _st2_table(model)
+    # StyleTTS2's modules alone, each as its flax module's {"params": ...}.
+    p = ("params",)
+    if isinstance(model, TextEncoder):
+        return _st2_text_encoder(p, "", model)
+    if isinstance(model, StyleEncoder):
+        return _st2_style_encoder(p, "", model)
+    if isinstance(model, ProsodyPredictor):
+        return _st2_predictor(p, "")
+    if isinstance(model, StyleDecoder):
+        return _st2_decoder(p, "", model)
+    if isinstance(model, AdaINResBlock1):
+        return _st2_resblock(p, "", model)
+    if isinstance(model, AdaIN1d):
+        return _dense(p + ("Dense_0",), "fc")
+    if isinstance(model, DiffusionDenoiser):
+        return _st2_denoiser(p, "", model)
+    if isinstance(model, PLBERT):
+        return _plbert(p, "")
     if isinstance(model, HiFiGANGenerator):
         return _generator_table(model)
     if isinstance(model, MultiPeriodDiscriminator):
@@ -286,15 +469,26 @@ def flax_to_torch(params_tree: dict, model) -> tuple:
     current = model.state_dict()
     state, used, absent = {}, set(), []
     for fpath, tkey, kind in _table(model):
-        if fpath not in leaves:
+        paths = _leaf_paths(fpath, kind)
+        if not paths:  # an LSTM's input bias: flax's gates have none
+            state[tkey] = torch.zeros(current[tkey].shape)
+            continue
+        if any(p not in leaves for p in paths):
             if fpath[1] in OPTIONAL_SUBTREES and fpath[:2] not in present:
                 state[tkey] = current[tkey].detach().cpu().clone()
-                absent.append("/".join(fpath))
+                absent += ["/".join(p) for p in paths]
                 continue
-            raise KeyError(f"flax tree has no {'/'.join(fpath)} for {tkey}")
-        arr = np.array(leaves[fpath], dtype=np.float32)
-        state[tkey] = torch.from_numpy(np.ascontiguousarray(_to_torch(arr, kind)))
-        used.add(fpath)
+            missing = next(p for p in paths if p not in leaves)
+            raise KeyError(f"flax tree has no {'/'.join(missing)} for {tkey}")
+        arrs = [np.array(leaves[p], dtype=np.float32) for p in paths]
+        if kind in ("lstm_ih", "lstm_hh"):
+            arr = np.concatenate([a.T for a in arrs])
+        elif kind == "lstm_bias":
+            arr = np.concatenate(arrs)
+        else:
+            arr = _to_torch(arrs[0], kind)
+        state[tkey] = torch.from_numpy(np.ascontiguousarray(arr))
+        used.update(paths)
     unused = sorted("/".join(p) for p in leaves if p not in used)
     if unused:
         raise ValueError(f"flax leaves with no torch counterpart: {unused}")
@@ -307,27 +501,38 @@ def flax_to_torch(params_tree: dict, model) -> tuple:
 def torch_to_flax(state_dict: dict, model) -> dict:
     """The flax tree (``{"params": ...}``, float32 numpy leaves) for a
     ``model``'s state dict."""
-    heads = {}
-    if isinstance(model, FastSpeech2):
-        for stack in ("encoder", "decoder"):
-            for i, block in enumerate(getattr(model, stack).blocks):
-                heads[f"{stack}.blocks.{i}."] = block.attn.heads
-        if model.gst is not None:
-            heads["gst.attn."] = model.gst.attn.heads
+    heads = {f"{name}.": m.heads for name, m in model.named_modules()
+             if isinstance(m, MultiHeadAttention)}
     tree: dict = {}
     table = _table(model)
     missing = sorted(set(state_dict) - {t for _, t, _ in table})
     if missing:
         raise ValueError(f"torch parameters with no flax leaf: {missing}")
-    for fpath, tkey, kind in table:
-        h = next((n for prefix, n in heads.items() if tkey.startswith(prefix)), 1)
+
+    def host(tkey):
         # A copy: a live CPU parameter must not change under a checkpoint
         # that a writer thread is still serializing.
-        arr = state_dict[tkey].detach().to("cpu", torch.float32, copy=True).numpy()
-        node = tree
-        for key in fpath[:-1]:
-            node = node.setdefault(key, {})
-        node[fpath[-1]] = np.ascontiguousarray(_to_flax(arr, kind, h))
+        return state_dict[tkey].detach().to("cpu", torch.float32, copy=True).numpy()
+
+    for fpath, tkey, kind in table:
+        paths = _leaf_paths(fpath, kind)
+        if not paths:
+            continue
+        arr = host(tkey)
+        if kind == "lstm_bias":
+            parts = np.split(arr + host(tkey.replace("bias_hh", "bias_ih")), 4)
+        elif kind in ("lstm_ih", "lstm_hh"):
+            parts = [a.T for a in np.split(arr, 4)]
+        else:
+            h = next((n for prefix, n in heads.items() if tkey.startswith(prefix)), 1)
+            parts = [_to_flax(arr, kind, h)]
+        for path, part in zip(paths, parts):
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = np.ascontiguousarray(part)
+    if getattr(model, "text_aligner_params", None) is not None:
+        tree["params"]["text_aligner"] = model.text_aligner_params
     return tree
 
 

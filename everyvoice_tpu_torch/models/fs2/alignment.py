@@ -30,12 +30,15 @@ NEG_INF = -1e9
 class AlignmentEncoder(nn.Module):
     """Projects text encodings (keys) and target mels (queries) into a shared
     space and returns (attn_soft, attn_logprob), each (B, T_mel, N_text).
-    Always float32, whatever the model's compute dtype."""
+    Always float32, whatever the model's compute dtype. The text encodings
+    have ``text_dim`` channels (``dim`` unless given; StyleTTS2's are twice
+    ``dim``)."""
 
-    def __init__(self, dim: int = 256, n_mels: int = 80, temperature: float = 0.0005):
+    def __init__(self, dim: int = 256, n_mels: int = 80, temperature: float = 0.0005,
+                 text_dim: int | None = None):
         super().__init__()
         self.temperature = temperature
-        self.key_in = nn.Conv1d(dim, 2 * dim, 3)
+        self.key_in = nn.Conv1d(text_dim or dim, 2 * dim, 3)
         self.key_out = nn.Conv1d(2 * dim, dim, 1)
         self.query_in = nn.Conv1d(n_mels, 2 * dim, 3)
         self.query_mid = nn.Conv1d(2 * dim, dim, 1)

@@ -110,6 +110,24 @@ def load_vocoder_from_checkpoint(ckpt_path: Path | str, compute_dtype: str = "au
     return generator, config
 
 
+def reference_log_mel(wav_path: Path | str, audio_config: dict, device) -> torch.Tensor:
+    """A style reference wav → its (1, T, n_mels) log-mel on ``device``:
+    mixed to mono, resampled to the input rate, the config's spectral
+    transform (the plain version, as the JAX package uses)."""
+    a = audio_config
+    audio, sr = read_wav(wav_path)
+    mono = audio.mean(axis=0)
+    if sr != a["input_sampling_rate"]:
+        mono = resample_host(mono, sr, a["input_sampling_rate"])
+    mel_fn = get_spectral_transform(
+        a["spec_type"], a["n_fft"], a["fft_window_size"], a["fft_hop_size"],
+        a["input_sampling_rate"], a["n_mels"], a["f_min"], a["f_max"],
+    )
+    with torch.no_grad():
+        mel = dynamic_range_compression(mel_fn(torch.from_numpy(mono).to(device)))
+    return mel.T[None]
+
+
 def export_generator(full_ckpt: Path | str, out_path: Path | str) -> Path:
     """Strip a HiFiGAN training checkpoint's discriminators and optimizer
     state into a HiFiGANGenerator checkpoint (the JAX package's
@@ -185,20 +203,8 @@ class Synthesizer:
 
     def load_style_reference(self, wav_path: Path | str) -> torch.Tensor:
         """A reference wav → its (1, T, n_mels) log-mel on the device for the
-        GST module: mixed to mono, resampled to the input rate, the config's
-        spectral transform (the plain version, as the JAX package uses)."""
-        a = self.config["preprocessing"]["audio"]
-        audio, sr = read_wav(wav_path)
-        mono = audio.mean(axis=0)
-        if sr != a["input_sampling_rate"]:
-            mono = resample_host(mono, sr, a["input_sampling_rate"])
-        mel_fn = get_spectral_transform(
-            a["spec_type"], a["n_fft"], a["fft_window_size"], a["fft_hop_size"],
-            a["input_sampling_rate"], a["n_mels"], a["f_min"], a["f_max"],
-        )
-        with torch.no_grad():
-            mel = dynamic_range_compression(mel_fn(torch.from_numpy(mono).to(self.device)))
-        return mel.T[None]
+        GST module (``reference_log_mel``)."""
+        return reference_log_mel(wav_path, self.config["preprocessing"]["audio"], self.device)
 
     def synthesize(
         self,

@@ -1,0 +1,198 @@
+"""StyleTTS2's generator stack for serving, in PyTorch (counterpart of
+everyvoice_tpu/models/styletts2/model.py's ``StyleTTS2Module``, its
+inference methods, and ``sample_style_diffusion``).
+
+The module holds every submodule a checkpoint of the JAX package holds, so
+its parameters load and write back unchanged: the text encoder; PL-BERT and
+its projection when the checkpoint records a ``plbert`` geometry, else the
+conv-and-BiLSTM context encoder standing in for it; the TMA aligner (the
+FastSpeech2 alignment encoder) unless the checkpoint records an ``asr``
+geometry, whose ``text_aligner`` subtree the loader keeps aside as numpy
+for the training slice; both style encoders; the prosody predictor; the
+decoder; the denoiser; ``frame_proj`` and ``f0_embed``; and the language
+embedding of a multilingual model.
+
+As in the JAX package, ``from_config`` gives the decoder none of the
+config's ``upsample_initial_channel``, ``resblock_kernel_sizes`` or
+``resblock_dilation_sizes``: its stack is always 512 channels with kernels
+3/7/11 and dilations 1/3/5, the shape every checkpoint has.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from everyvoice_tpu_torch.models.fs2.alignment import AlignmentEncoder
+from everyvoice_tpu_torch.models.styletts2.layers import (
+    DiffusionDenoiser,
+    ProsodyPredictor,
+    StyleDecoder,
+    StyleEncoder,
+    TextEncoder,
+)
+from everyvoice_tpu_torch.models.styletts2.plbert import PLBERT
+from everyvoice_tpu_torch.utils.precision import torch_dtype
+
+
+class StyleTTS2(nn.Module):
+    def __init__(
+        self,
+        n_symbols: int,
+        hidden_dim: int = 512,
+        style_dim: int = 128,
+        max_dur: int = 50,
+        max_frames: int = 800,
+        n_mels: int = 80,
+        sample_rate: int = 22050,
+        hop: int = 256,
+        multilingual: bool = False,
+        n_langs: int = 1,
+        language_embedding_dim: int = 64,
+        upsample_rates=(8, 8),
+        upsample_kernel_sizes=(16, 16),
+        gen_istft_n_fft: int = 16,
+        gen_istft_hop_size: int = 4,
+        diff_layers: int = 3,
+        diff_heads: int = 8,
+        diff_head_features: int = 64,
+        plbert_geometry: Optional[dict] = None,
+        asr_geometry: Optional[dict] = None,
+        compute_dtype: str = "float32",
+    ):
+        super().__init__()
+        dt = torch_dtype(compute_dtype)
+        self.style_dim = style_dim
+        self.max_dur = max_dur
+        self.max_frames = max_frames
+        self.hop = hop
+        self.plbert_geometry = dict(plbert_geometry) if plbert_geometry else None
+        self.asr_geometry = dict(asr_geometry) if asr_geometry else None
+        # The ``text_aligner`` subtree of an ``asr`` checkpoint, as loaded.
+        self.text_aligner_params = None
+        self.text_encoder = TextEncoder(n_symbols, hidden_dim)
+        if self.plbert_geometry is not None:
+            self.plbert_encoder = PLBERT(**self.plbert_geometry)
+            self.plbert_proj = nn.Linear(self.plbert_geometry["hidden_size"], hidden_dim)
+        else:
+            self.context_encoder = TextEncoder(n_symbols, hidden_dim, n_convs=2)
+        if self.asr_geometry is None:
+            self.tma_aligner = AlignmentEncoder(dim=hidden_dim // 2, n_mels=n_mels,
+                                                text_dim=hidden_dim)
+        self.acoustic_style_encoder = StyleEncoder(style_dim, dtype=dt)
+        self.prosodic_style_encoder = StyleEncoder(style_dim, dtype=dt)
+        self.predictor = ProsodyPredictor(style_dim, hidden_dim, max_dur)
+        self.decoder = StyleDecoder(
+            hidden_dim, upsample_rates=upsample_rates,
+            upsample_kernel_sizes=upsample_kernel_sizes, gen_istft_n_fft=gen_istft_n_fft,
+            gen_istft_hop_size=gen_istft_hop_size, style_dim=style_dim,
+            sample_rate=sample_rate, hop=hop, dtype=dt,
+        )
+        self.denoiser = DiffusionDenoiser(2 * style_dim, hidden_dim, diff_layers, diff_heads,
+                                          diff_head_features)
+        self.frame_proj = nn.Linear(hidden_dim, hidden_dim)
+        self.f0_embed = nn.Linear(1, hidden_dim)
+        self.multilingual = multilingual
+        if multilingual:
+            self.language_embed = nn.Embedding(n_langs, language_embedding_dim)
+            self.language_proj = nn.Linear(language_embedding_dim, hidden_dim)
+
+    @classmethod
+    def from_config(cls, config: dict, n_symbols: int, n_langs: int = 1,
+                    plbert_geometry: Optional[dict] = None, asr_geometry: Optional[dict] = None,
+                    compute_dtype: str = "float32") -> "StyleTTS2":
+        """From a config filled by ``config.styletts2_config``."""
+        m = config["model"]
+        audio = config["preprocessing"]["audio"]
+        return cls(
+            n_symbols=n_symbols,
+            hidden_dim=m["hidden_dim"],
+            style_dim=m["style_dim"],
+            max_dur=m["max_dur"],
+            max_frames=config["training"]["max_len"],
+            n_mels=audio["n_mels"],
+            sample_rate=audio["output_sampling_rate"],
+            hop=audio["fft_hop_size"],
+            multilingual=m["multilingual"],
+            n_langs=max(n_langs, 1),
+            language_embedding_dim=m["language_embedding_dim"],
+            upsample_rates=tuple(m["decoder"]["upsample_rates"]),
+            upsample_kernel_sizes=tuple(m["decoder"]["upsample_kernel_sizes"]),
+            gen_istft_n_fft=m["decoder"]["gen_istft_n_fft"],
+            gen_istft_hop_size=m["decoder"]["gen_istft_hop_size"],
+            diff_layers=m["diffusion"]["transformer"]["num_layers"],
+            diff_heads=m["diffusion"]["transformer"]["num_heads"],
+            diff_head_features=m["diffusion"]["transformer"]["head_features"],
+            plbert_geometry=plbert_geometry,
+            asr_geometry=asr_geometry,
+            compute_dtype=compute_dtype,
+        )
+
+    # -- the pieces serving runs ---------------------------------------------
+    def encode_text(self, tokens, mask):
+        """The acoustic text encoding. The JAX serving pipeline passes no
+        language id here, so a multilingual model's language embedding is
+        not added in serving, and it is not here either."""
+        return self.text_encoder(tokens, mask)
+
+    def extract_styles(self, ref_mel):
+        return self.acoustic_style_encoder(ref_mel), self.prosodic_style_encoder(ref_mel)
+
+    def text_context_states(self, tokens, mask):
+        """(B, N, hidden): PL-BERT projected, or its conv stand-in."""
+        if self.plbert_geometry is not None:
+            return self.plbert_proj(self.plbert_encoder(tokens, mask))
+        return self.context_encoder(tokens, mask)
+
+    def text_context_embedding(self, tokens, mask):
+        ctx = self.text_context_states(tokens, mask)
+        denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
+        return (ctx * mask[..., None]).sum(dim=1) / denom
+
+    def prosody_encoding(self, tokens, mask, text_enc):
+        """The prosody predictor's input: PL-BERT's projected states when
+        the model has PL-BERT, else the acoustic text encoding."""
+        if self.plbert_geometry is not None:
+            return self.text_context_states(tokens, mask)
+        return text_enc
+
+    def denoise_style(self, noisy, sigma, text_embedding):
+        return self.denoiser(noisy, sigma, text_embedding)
+
+    def predict_prosody(self, text_enc, prosodic_style, mask):
+        return self.predictor(text_enc, prosodic_style, mask)
+
+    def decode(self, frames, f0_frames, acoustic_style, noise):
+        """Frames (B, T, hidden) and F0 (B, T) → wav (B, T·hop); ``noise``
+        is the source's (B, T·hop) standard normal draw. The JAX decoder's
+        energy argument is unused there, so it is absent here."""
+        return self.decoder(frames, f0_frames, acoustic_style, noise)
+
+
+def sample_style_diffusion(denoiser, noise: torch.Tensor, text_embedding: torch.Tensor,
+                           steps: int = 5, embedding_scale: float = 1.0,
+                           sigma_min: float = 0.002, sigma_max: float = 3.0,
+                           rho: float = 9.0) -> torch.Tensor:
+    """Euler steps down the Karras schedule from ``noise`` (a (B, D)
+    standard normal draw) × σ_max to a style conditioned on the text
+    embedding. With ``embedding_scale`` ≠ 1 the denoiser also runs on a
+    zero embedding each step and the two are mixed (classifier-free
+    guidance)."""
+    idx = torch.arange(steps, device=noise.device, dtype=torch.float32)
+    sigmas = (sigma_max ** (1 / rho) + idx / max(steps - 1, 1)
+              * (sigma_min ** (1 / rho) - sigma_max ** (1 / rho))) ** rho  # Karras, float32
+    b = text_embedding.shape[0]
+    x = noise * sigmas[0]
+    null_embedding = torch.zeros_like(text_embedding)
+    for i in range(steps):
+        sigma = sigmas[i].expand(b)
+        denoised = denoiser(x, sigma, text_embedding)
+        if embedding_scale != 1.0:
+            denoised_null = denoiser(x, sigma, null_embedding)
+            denoised = denoised_null + embedding_scale * (denoised - denoised_null)
+        sigma_next = sigmas[i + 1] if i + 1 < steps else torch.zeros((), device=noise.device)
+        d = (x - denoised) / torch.clamp(sigmas[i], min=1e-8)
+        x = x + d * (sigma_next - sigmas[i])
+    return x

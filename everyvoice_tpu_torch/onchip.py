@@ -1,10 +1,11 @@
 """What the on-card check (``chip_smoke.py``) and the serving profile
 (``python -m everyvoice_tpu_torch.profile_serving``) share: the card's name
 and power limit, the requests they send, seeded full-width checkpoints to
-serve them from, a seeded wav corpus to preprocess, the vocoder training
-configs on that corpus (HiFiGAN V1 at its default full width, and the
-iSTFTNet variant), and a project of config files over a corpus, laid out as
-the JAX package's wizard lays one out.
+serve them from (FastSpeech2 + HiFiGAN V1, and StyleTTS2 with or without
+the multilingual PL-BERT), a seeded wav corpus to preprocess, the vocoder
+training configs on that corpus (HiFiGAN V1 at its default full width, and
+the iSTFTNet variant), and a project of config files over a corpus, laid
+out as the JAX package's wizard lays one out.
 
 The checkpoints hold random FastSpeech2 and HiFiGAN V1 weights at the
 default widths, drawn from a ``torch.Generator``, with the duration head's
@@ -24,11 +25,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from everyvoice_tpu_torch.config import fs2_config, hifigan_config
+from everyvoice_tpu_torch.config import fs2_config, hifigan_config, styletts2_config
 from everyvoice_tpu_torch.convert import torch_to_flax
 from everyvoice_tpu_torch.dsp.audio_io import write_wav
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
+from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
+from everyvoice_tpu_torch.models.styletts2.plbert import MULTILINGUAL_PLBERT
 from everyvoice_tpu_torch.text import TextProcessor
 from everyvoice_tpu_torch.train.checkpoint import save_checkpoint
 from everyvoice_tpu_torch.utils import (
@@ -104,6 +107,47 @@ def write_seeded_checkpoints(out_dir: Path, gen: torch.Generator, device) -> tup
     voc_path = save_checkpoint(out_dir / "hifigan.ckpt", "HiFiGANGenerator", voc_raw,
                                torch_to_flax(voc.state_dict(), voc))
     return fs2_path, voc_path
+
+
+# StyleTTS2's seeded duration head: logits peaked at 5 frames a symbol
+# (about 58 ms at 22,050 Hz and hop 256), so the request texts of up to 150
+# symbols fit the 800 frames and the longest one is cut, as in the JAX
+# package.
+ST2_DURATION_PEAK = 5
+
+
+def write_styletts2_checkpoint(out_dir: Path, gen: torch.Generator, plbert: bool = False) -> Path:
+    """A full-width StyleTTS2 EVTP checkpoint of seeded weights (the JAX
+    package's default model section, ``max_len`` 800), in the JAX layout,
+    with the ``pretrained_components`` header serving reads; with
+    ``plbert``, the multilingual PL-BERT geometry (768 wide, 12 layers),
+    its vocabulary covering the text processor's symbols. Snake alphas are
+    ones; the duration bias peaks at ``ST2_DURATION_PEAK`` frames, and the
+    iSTFT head's magnitude is lowered so that the wavs are audio-sized."""
+    letters = list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ")
+    raw = {"contact": {"contact_name": "Seeded Weights", "contact_email": "seeded@example.org"},
+           "model": {}, "text": {"symbols": {"letters": letters}}}
+    config = styletts2_config(raw)
+    n_symbols = len(TextProcessor(config["text"]).symbols)
+    geometry = (dict(MULTILINGUAL_PLBERT, vocab_size=max(MULTILINGUAL_PLBERT["vocab_size"],
+                                                          n_symbols))
+                if plbert else None)
+    model = StyleTTS2.from_config(config, n_symbols=n_symbols, plbert_geometry=geometry)
+    seeded_init_(model, gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".alpha" in name:
+                p.fill_(1.0)
+        classes = torch.arange(model.max_dur, dtype=torch.float32)
+        model.predictor.duration.bias.copy_(-0.5 * (classes - ST2_DURATION_PEAK) ** 2)
+        n_bins = model.decoder.n_fft // 2 + 1
+        model.decoder.conv_post.bias[:n_bins] = -6.0
+        model.decoder.conv_post.scale.mul_(0.2)
+    name = "styletts2-plbert.ckpt" if plbert else "styletts2.ckpt"
+    return save_checkpoint(
+        Path(out_dir) / name, "StyleTTS2Module", raw,
+        {"generator": torch_to_flax(model.state_dict(), model)}, lang2id={"default": 0},
+        extra={"pretrained_components": {"plbert": geometry, "asr": None}})
 
 
 CORPUS_WORDS = (

@@ -103,10 +103,12 @@ def save_checkpoint(
     lang2id: Optional[dict] = None,
     speaker2id: Optional[dict] = None,
     stats: Optional[dict] = None,
+    extra: Optional[dict] = None,
 ) -> Path:
     """Write ``params`` (a nested dict of numpy arrays in the JAX package's
     layout), and ``opt_state`` (the optax state dict layout) if given, with a
-    header the JAX package's ``load_checkpoint`` accepts."""
+    header the JAX package's ``load_checkpoint`` accepts; ``extra``'s keys
+    join the header (a StyleTTS2 checkpoint's ``pretrained_components``)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     header = {
@@ -119,6 +121,7 @@ def save_checkpoint(
         },
         "global_step": int(step),
         "epoch": int(epoch),
+        **(extra or {}),
     }
     header_bytes = json.dumps(header, ensure_ascii=False).encode("utf8")
     body = {"state_dict": params}

@@ -1,0 +1,78 @@
+"""``chip_smoke.py``'s float32 training-step check: the card's hard
+alignment stands in for the CPU's only where the two are a tie on the CPU
+(``path_tie``), built here from the port's ``viterbi_alignment`` on
+log-probabilities that part by far less than a float32 rounding of the
+path's score, and refused for a path that scores worse by a whole unit.
+Also: ``alignment_ties.py``, which measures how often the devices part,
+imports nothing of JAX."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from everyvoice_tpu_torch.models.fs2.alignment import _masked_log_softmax, viterbi_alignment
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "pydantic", "regex", "msgpack", "yaml", "PIL", "everyvoice_tpu")
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _tied_logprob():
+    """(1, 6, 3) log-probabilities whose frames 2–3 score the same on
+    phones 1 and 2: every path that enters phone 2 at frame 2, 3 or 4 has
+    the same score, and the search takes frame 2 (its backtrack stays on a
+    phone at a tie)."""
+    logp = torch.full((1, 6, 3), -6.0)
+    logp[0, 0, 0] = logp[0, 1, 1] = logp[0, 4, 2] = logp[0, 5, 2] = -0.1
+    logp[0, 2, 1:] = logp[0, 3, 1:] = -0.7
+    return logp, torch.tensor([3]), torch.tensor([6])
+
+
+def _path(logp, src, mel):
+    hard = viterbi_alignment(logp, src, mel)
+    return _masked_log_softmax(logp, src).double(), hard.double()
+
+
+def test_path_tie_holds_for_paths_of_equal_score(chip_smoke):
+    logp, src, mel = _tied_logprob()
+    card = logp.clone()
+    card[0, 3, 1] += 1e-5  # a rounding on the card: phone 2 from frame 4
+    cpu_path, card_path = _path(logp, src, mel), _path(card, src, mel)
+    assert cpu_path[1][0].argmax(-1).tolist() == [0, 1, 2, 2, 2, 2]
+    assert card_path[1][0].argmax(-1).tolist() == [0, 1, 1, 1, 2, 2]
+    tie = chip_smoke.path_tie(*card_path, *cpu_path)
+    assert tie["frames_parted"] == 2
+    assert abs(tie["score_gap"]) < 1e-6 <= tie["tie_bound"]
+    same = chip_smoke.path_tie(*cpu_path, *cpu_path)
+    assert same == {"frames_parted": 0, "score_gap": 0.0, "tie_bound": same["tie_bound"]}
+
+
+def test_path_tie_refuses_a_worse_path(chip_smoke):
+    logp, src, mel = _tied_logprob()
+    late = logp.clone()
+    late[0, 3, 1] += 1e-5
+    late_path = _path(late, src, mel)[1]
+    logp[0, 3, 1] -= 1.0  # staying on phone 1 at frame 3 costs a whole unit
+    cpu_path = _path(logp, src, mel)
+    # A card whose log-probabilities equal the CPU's, yet whose search
+    # returned the later path.
+    tie = chip_smoke.path_tie(cpu_path[0], late_path, *cpu_path)
+    assert tie["frames_parted"] == 2
+    assert tie["score_gap"] == pytest.approx(1.0, abs=1e-3)
+    assert tie["score_gap"] > tie["tie_bound"]
+
+
+def test_alignment_ties_imports_nothing_of_jax():
+    source = (REPO / "alignment_ties.py").read_text()
+    for name in FORBIDDEN:
+        assert f"import {name}" not in source and f"from {name} " not in source
+        assert f"from {name}." not in source

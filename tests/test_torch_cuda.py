@@ -1,8 +1,8 @@
 """Tests that need a CUDA card: the port's hand-written kernels against their
 plain PyTorch versions, the wrappers' refusals, one FastSpeech2 training
 step and one HiFiGAN GAN step in bfloat16 and in float32, the vocoder's
-re-fold after an optimizer step and a ResBlock2 generator. Without a card
-they skip.
+re-fold after an optimizer step, a ResBlock2 generator and a StyleTTS2
+synthesis. Without a card they skip.
 
 This file imports nothing of JAX, so it also runs on a machine that has no
 JAX, without the repository's conftest (which imports it):
@@ -320,4 +320,44 @@ def test_resblock2_generator_on_the_card(card, istft):
     assert want.shape == (2, 40 * hop)
     assert (out["cuda", "float32"] - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     assert torch.isfinite(out["cuda", "bfloat16"]).all()
+    assert out["cuda", "bfloat16"].shape == want.shape
+
+
+def test_styletts2_synthesis_on_the_card(card, tmp_path):
+    """A StyleTTS2 synthesis in float32 on the card matches the CPU's from
+    the same checkpoint and noise (1e-3 of max|ref|, the serving check's
+    synthesis tolerance); in bfloat16 it is finite and as long."""
+    import numpy as np
+
+    from everyvoice_tpu_torch.config import styletts2_config
+    from everyvoice_tpu_torch.convert import torch_to_flax
+    from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
+    from everyvoice_tpu_torch.models.styletts2.synthesize import (
+        load_styletts2_model,
+        synthesize_text,
+    )
+    from everyvoice_tpu_torch.onchip import seeded_init_
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.train.checkpoint import save_checkpoint
+
+    raw = {"contact": {"contact_name": "Card", "contact_email": "card@example.org"},
+           "model": {"hidden_dim": 64, "style_dim": 32, "max_dur": 8,
+                     "diffusion": {"transformer": {"num_layers": 1, "num_heads": 2,
+                                                   "head_features": 16}}},
+           "training": {"max_len": 64},
+           "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}
+    config = styletts2_config(raw)
+    model = StyleTTS2.from_config(config, len(TextProcessor(config["text"]).symbols))
+    seeded_init_(model, torch.Generator().manual_seed(0))
+    path = save_checkpoint(tmp_path / "st2.ckpt", "StyleTTS2Module", raw,
+                           {"generator": torch_to_flax(model.state_dict(), model)})
+    out = {}
+    for device, dtype in (("cpu", "float32"), ("cuda", "float32"), ("cuda", "bfloat16")):
+        loaded, cfg, tp, _ = load_styletts2_model(path, compute_dtype=dtype, device=device)
+        out[device, dtype] = synthesize_text(loaded, cfg, tp, "hello there, world", seed=1)
+    want = out["cpu", "float32"]
+    assert len(want) % 256 == 0 and 0 < len(want) <= 64 * 256
+    assert out["cuda", "float32"].shape == want.shape
+    assert np.abs(out["cuda", "float32"] - want).max() <= 1e-3 * np.abs(want).max()
+    assert np.isfinite(out["cuda", "bfloat16"]).all()
     assert out["cuda", "bfloat16"].shape == want.shape

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``everyvoice_tpu_torch``,
 running a small CPU synthesis that writes every output format, a small CPU
-preprocess of an English corpus through G2P and phonological features, and
-two CPU training steps on its artifacts loads nothing of JAX, flax,
-pydantic, regex, msgpack, PyYAML, PIL or ``everyvoice_tpu``. This file's
+preprocess of an English corpus through G2P and phonological features, two
+CPU training steps on its artifacts and a small CPU StyleTTS2 synthesis
+loads nothing of JAX, flax, pydantic, regex, msgpack, PyYAML, PIL or
+``everyvoice_tpu``. This file's
 process has imported JAX already (tests/conftest.py), so the check runs in
 a fresh interpreter."""
 
@@ -80,10 +81,28 @@ with tempfile.TemporaryDirectory() as tmp:
     }, device="cpu", log_every=1)
     steps = trainer.global_step
     ckpts = sorted(p.name for p in trainer.ckpt_dir.iterdir())
+
+    from everyvoice_tpu_torch.config import styletts2_config
+    from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
+    from everyvoice_tpu_torch.models.styletts2.synthesize import load_styletts2_model, synthesize_text
+    from everyvoice_tpu_torch.onchip import seeded_init_
+    st2_raw = {"contact": {"contact_name": "Isolation", "contact_email": "iso@example.org"},
+               "model": {"hidden_dim": 32, "style_dim": 16, "max_dur": 8,
+                         "diffusion": {"transformer": {"num_layers": 1, "num_heads": 2,
+                                                       "head_features": 8}}},
+               "training": {"max_len": 16},
+               "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}
+    st2_cfg = styletts2_config(st2_raw)
+    st2 = StyleTTS2.from_config(st2_cfg, len(TextProcessor(st2_cfg["text"]).symbols))
+    seeded_init_(st2, torch.Generator().manual_seed(0))
+    s = save_checkpoint(tmp / "st2.ckpt", "StyleTTS2Module", st2_raw,
+                        {"generator": torch_to_flax(st2.state_dict(), st2)})
+    model, config, tp, _ = load_styletts2_model(s, device="cpu")
+    st2_samples = len(synthesize_text(model, config, tp, "Hello world."))
 roots = sorted({name.split(".")[0] for name in sys.modules})
 print(json.dumps({"roots": roots, "written": len(written), "specs": specs, "pfs": pfs,
                   "samples": [len(r["wav"]) for r in results], "steps": steps,
-                  "ckpts": ckpts}))
+                  "ckpts": ckpts, "st2_samples": st2_samples}))
 """
 
 
@@ -99,6 +118,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert report["specs"] == report["pfs"] == 2
     assert all(n > 0 for n in report["samples"])
     assert report["steps"] == 2 and "last.ckpt" in report["ckpts"]
+    assert 0 < report["st2_samples"] <= 16 * 256 and report["st2_samples"] % 256 == 0
     loaded = set(report["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
@@ -112,6 +132,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         load_fs2_from_checkpoint,
         load_vocoder_from_checkpoint,
     )
+    from everyvoice_tpu_torch.models.styletts2.synthesize import load_styletts2_model
     from everyvoice_tpu_torch.preprocessor import Preprocessor
     from everyvoice_tpu_torch.train.loop import FastSpeech2Trainer
     from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec
@@ -128,7 +149,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Preprocessor({"preprocessing": {"save_dir": str(tmp_path / "never-made")}})
     assert not (tmp_path / "never-made").exists()
-    for load in (load_fs2_from_checkpoint, load_vocoder_from_checkpoint):
+    for load in (load_fs2_from_checkpoint, load_vocoder_from_checkpoint, load_styletts2_model):
         with pytest.raises(RuntimeError, match="CUDA"):
             load(missing)
     assert resolve_device("cpu").type == "cpu"
