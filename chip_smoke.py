@@ -98,7 +98,23 @@ Phases, any failure of which exits nonzero:
     through ``cli.main`` with no ``EVERYVOICE_DEVICE``, which must land on
     the card; and a 16-text request split by CUDA events and
     torch.profiler;
-12. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+12. StyleTTS2 training at full width (hidden 512, style 128, the 512-channel
+    AdaIN iSTFT decoder, MPD periods 2/3/5/7/11 and MSD 3 scales, batch 2,
+    ``max_len`` 800, clips of 320 frames, bf16) through ``cli.main`` from
+    another working directory: a seeded 24-utterance project with an
+    out-of-domain text file; ``preprocess text-to-wav`` (the ood step
+    included; every feature batch's log-mel held to the plain version);
+    ``train text-to-wav --mode first`` (2 epochs, the TMA from epoch 1) and
+    ``--mode second`` (2 epochs, the diffusion from epoch 1), which must
+    pick up stage 1's checkpoint and start from its weights; two steps
+    resumed from ``stage-2-last.ckpt``; the logs and checkpoints checked
+    (losses, keys, validations, the stage tag, both optimizer states in
+    optax's layout); one float32 stage-2 step on the card against the CPU's
+    (clips of 64 frames; a Viterbi tie shared only where ``path_tie`` proves
+    it); a step split by CUDA events and torch.profiler; and the trained
+    checkpoint served through ``synthesize text-to-wav`` with no device
+    given, then its 1- and 16-text requests;
+13. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -2069,6 +2085,363 @@ def styletts2_phase(root: Path, card: str) -> dict:
     return {"requests": rows, "precision": precision, "split": split, "row": row}
 
 
+ST2_UTTERANCES = 24    # 21 for training (10 steps of 2 an epoch), 3 for validation
+ST2_EPOCHS = 2         # each stage; the TMA (stage 1) and the diffusion (stage 2) from epoch 1
+ST2_RESUME_STEPS = 2
+ST2_F32_SEGMENT = 64   # decoder frames of the float32 card-vs-CPU step (320 in training)
+ST2_GEN_KEYS = {"s2s", "mono", "mel", "ce", "dur", "f0", "norm", "gen", "fm", "total"}
+
+
+def check_st2_run(trainer, stage_ckpt: str, expect_keys: set) -> list:
+    """A StyleTTS2 stage's run: metrics (finite losses, every key, one
+    validation an epoch), hparams, events, and its checkpoints (the stage
+    tag, no pretrained components, both optimizer states in the optax
+    layout with the step's count). Returns the training records."""
+    import numpy as np
+
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    run = trainer.run_dir
+    for name in ("metrics.jsonl", "hparams.yaml"):
+        if not (run / name).is_file():
+            fail(f"the StyleTTS2 run wrote no {name}")
+    if not list(run.glob("events.out.tfevents.*")):
+        fail("the StyleTTS2 run wrote no event file")
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in records if "training/gen/total" in r]
+    val = [r for r in records if "validation/total" in r]
+    keys = {"training/disc/total"} | {f"training/gen/{k}" for k in expect_keys}
+    if not train or any(set(k for k in r if k.startswith("training/")) != keys for r in train):
+        fail(f"StyleTTS2 training records lack keys: {[sorted(r) for r in train]}")
+    if not all(np.isfinite(v) for r in records for k, v in r.items() if "/" in k):
+        fail(f"StyleTTS2 losses are not finite: {records}")
+    if len(val) != ST2_EPOCHS:
+        fail(f"{len(val)} validations in {ST2_EPOCHS} epochs")
+    paths = [trainer.ckpt_dir / stage_ckpt, *trainer.ckpt_dir.glob("epoch=*-step=*-loss=*.ckpt")]
+    if len(paths) != 2 or not paths[0].is_file():
+        fail(f"StyleTTS2 checkpoints: {sorted(p.name for p in trainer.ckpt_dir.iterdir())}")
+    for path in paths:
+        ckpt = load_checkpoint(path)
+        opt = ckpt["optimizer_states"]
+        if (ckpt.get("stage") != trainer.mode
+                or ckpt.get("pretrained_components") != {"plbert": None, "asr": None}
+                or sorted(ckpt["state_dict"]) != ["discriminators", "generator"]
+                or sorted(opt) != ["disc", "gen"]):
+            fail(f"{path.name}: header or trees not the JAX package's")
+        for net in ("gen", "disc"):
+            tree = ckpt["state_dict"]["generator" if net == "gen" else "discriminators"]
+            adam = opt[net]["0"]
+            if (sorted(opt[net]) != ["0", "1", "2"] or int(adam["count"]) != ckpt["global_step"]
+                    or flat_shapes(adam["mu"]) != flat_shapes(tree)
+                    or flat_shapes(adam["nu"]) != flat_shapes(tree)):
+                fail(f"{path.name}: the {net} optimizer state is not optax.adamw's layout")
+    return train
+
+
+def split_st2_step(trainer, batch) -> dict:
+    """CUDA-event times of one bf16 StyleTTS2 step on a training batch:
+    the alignment targets, the discriminators' pass and update, the
+    generator's pass (aligner, decode, losses, backward) and update, and,
+    on the decoder's output shape, its iSTFT head alone; then the step
+    traced by torch.profiler (launches, device busy time, wall) and its
+    peak memory."""
+    import torch
+
+    from everyvoice_tpu_torch.utils.precision import no_tf32
+
+    trainer.train_step(batch)  # warm
+    draws = trainer.draw_step(batch)
+    epoch = trainer.epoch
+    tma, (_, diff_on, _) = trainer.tma_active(epoch), trainer.phase_weights(epoch)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    with no_tf32():
+        events[0].record()
+        targets = trainer.alignment_targets(batch, tma)
+        targets["segment_starts"] = draws.segment_starts
+        events[1].record()
+        _, d_grads = trainer.discriminator_grads(batch, targets, draws.disc_noise)
+        trainer.disc_opt.step(trainer.disc_params, d_grads, trainer.disc_opt_state)
+        events[2].record()
+        _, g_grads = trainer.generator_grads(batch, targets, draws, diff_on, tma)
+        events[3].record()
+        trainer.gen_opt.step(trainer.gen_params, g_grads, trainer.gen_opt_state)
+        events[4].record()
+        seg = trainer.model.segment_frames
+        x = torch.randn(2, trainer.model.decoder.conv_post.weight.shape[1], seg * 64,
+                        device=trainer.device, dtype=trainer.model.decoder.dtype)
+        events[5].record()
+        with torch.no_grad():
+            trainer.model.decoder.head(x, seg * trainer.model.hop)
+        events[6].record()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    traced = trace(lambda: trainer.train_step(batch))
+    parts = ("alignment_targets_ms", "disc_pass_and_update_ms", "gen_pass_ms", "gen_update_ms")
+    out = {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(parts)}
+    out.update({"istft_head_ms": events[5].elapsed_time(events[6]),"kernels_per_step": traced["kernels"], "traced_step_ms": traced["wall_ms"],
+                "traced_busy_ms": traced["busy_ms"],
+                "idle_share": (None if traced["busy_ms"] is None
+                               else 1.0 - traced["busy_ms"] / traced["wall_ms"]),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return out
+
+
+def st2_float32_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> dict:
+    """One float32 stage-2 step (TMA and diffusion on, dropout off) from the
+    stage-2 checkpoint's parameters, on one batch of 2 rows, on the card and
+    on the CPU, with the same draws (made on the CPU) and decoder clips of
+    ``ST2_F32_SEGMENT`` frames so that the CPU's side is short: every loss
+    and both gradient norms within 1e-3 relative. A step searches two
+    Viterbi paths (the targets' and the binarization loss's); the CPU takes
+    the card's where ``path_tie`` shows it to be a tie on the CPU, as
+    phase 7's check does."""
+    import torch
+
+    from everyvoice_tpu_torch.config import styletts2_config
+    from everyvoice_tpu_torch.dataloader import StyleTTS2Dataset
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.models.fs2 import alignment
+    from everyvoice_tpu_torch.models.layers import Dropout
+    from everyvoice_tpu_torch.models.styletts2.train import StyleTTS2Trainer
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    config = styletts2_config({**config, "training": {
+        **config["training"], "decoder_segment_frames": ST2_F32_SEGMENT}})
+    ckpt = load_checkpoint(ckpt_path)
+    lang2id = ckpt["hyper_parameters"]["lang2id"]
+    rows = generic_psv_filelist_reader(config["training"]["training_filelist"])
+    ds = StyleTTS2Dataset(rows, config)
+    host = next(ds.batches(2, shuffle=False))
+    host.pop("basenames")
+    viterbi = alignment.viterbi_alignment
+    paths: dict = {"cuda": [], "cpu": []}  # per device: (log-probabilities, path) of each search
+
+    def shared_viterbi(device: str):
+        def search(attn_logprob, src_lengths, mel_lengths):
+            hard = viterbi(attn_logprob, src_lengths, mel_lengths)
+            logp = alignment._masked_log_softmax(attn_logprob.detach().float(), src_lengths)
+            paths[device].append((logp.cpu().double(), hard.cpu().double()))
+            if device == "cuda":
+                return hard
+            return paths["cuda"][len(paths["cpu"]) - 1][1].float().to(hard.device)
+        return search
+
+    result, draws = {}, None
+    for device in ("cuda", "cpu"):
+        trainer = StyleTTS2Trainer(config, ds, ds, lang2id, run_dir=run_root / f"st2-f32-{device}",
+                                   mode="second", compute_dtype="float32", device=device)
+        for module in trainer.model.modules():
+            if isinstance(module, Dropout):
+                module.p = 0.0
+        trainer.load_params(ckpt["state_dict"])
+        trainer.gen_opt_state = trainer.gen_opt.init(trainer.gen_params)
+        trainer.disc_opt_state = trainer.disc_opt.init(trainer.disc_params)
+        batch = to_device(host, trainer.device)
+        if draws is None:
+            draws = trainer.draw_step(to_device(host, torch.device("cpu")),
+                                      torch.Generator().manual_seed(5))
+        alignment.viterbi_alignment = shared_viterbi(device)
+        try:
+            losses = trainer.train_step(batch, draws.to(trainer.device), epoch=1)
+        finally:
+            alignment.viterbi_alignment = viterbi
+        result[device] = {**{k: v.item() for k, v in losses.items()},
+                          "grad_norm": trainer.grad_norm.item(),
+                          "disc_grad_norm": trainer.disc_grad_norm.item()}
+    ties = [path_tie(*card, *cpu) for card, cpu in zip(paths["cuda"], paths["cpu"])]
+    diffs = {k: abs(result["cuda"][k] - v) / max(abs(v), 1e-12) for k, v in result["cpu"].items()}
+    row = {"rows": 2, "segment_frames": ST2_F32_SEGMENT, "card": result["cuda"],
+           "cpu": result["cpu"], "alignments": ties, "max_rel_diff": max(diffs.values())}
+    print("styletts2 train float32 card vs cpu " + json.dumps(row), flush=True)
+    if len(ties) != 2:
+        fail(f"the stage-2 step searched {len(ties)} Viterbi paths, not 2")
+    for tie in ties:
+        if tie["score_gap"] > tie["tie_bound"]:
+            fail(f"the card's alignment path is not a tie of the CPU's: {tie}")
+    if row["max_rel_diff"] > 1e-3:
+        fail(f"the card's float32 StyleTTS2 step disagrees with the CPU's: {diffs}")
+    return row
+
+
+def st2_training_phase(root: Path, card: str) -> dict:
+    """StyleTTS2 training at full width (phase 12), every step through
+    ``cli.main`` from another working directory: ``preprocess
+    text-to-wav`` of a seeded corpus (the ood step included; every feature
+    batch's log-mel held to the plain version), ``train text-to-wav --mode
+    first`` then ``--mode second`` (which picks up stage 1's checkpoint),
+    two steps resumed from ``stage-2-last.ckpt``; each run checked; a
+    float32 step on the card against the CPU's; a step split; and the
+    trained stage-2 checkpoint served through ``synthesize text-to-wav``
+    with no device given, then the 1- and 16-text requests."""
+    import contextlib
+    import io
+
+    import torch
+
+    from everyvoice_tpu_torch import cli
+    from everyvoice_tpu_torch.config_files import load_config_from_path
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.models.styletts2 import synthesize as st2
+    from everyvoice_tpu_torch.models.styletts2 import train as st2_train
+    from everyvoice_tpu_torch.onchip import REQUESTS, TEXTS, write_styletts2_project
+    from everyvoice_tpu_torch.ops.mel import log_mel
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+    from everyvoice_tpu_torch.train import loop as train_loop
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    work = root / "st2-train"
+    cfg_path = write_styletts2_project(work, ST2_UTTERANCES, seed=14, epochs_1st=ST2_EPOCHS,
+                                       epochs_2nd=ST2_EPOCHS,
+                                       losses={"tma_epoch": 1, "diff_epoch": 1})
+    walls: dict = {}
+
+    def run(name: str, *args) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main([str(a) for a in args])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{name}: exit code {rc}")
+
+    trainers, step_s, loaded, first_weights = [], [], [], {}
+    Trainer = st2_train.StyleTTS2Trainer
+    plain = {"fit": Trainer.fit, "train_step": Trainer.train_step,
+             "load_checkpoint": st2_train.load_checkpoint, "preprocess": Preprocessor.preprocess}
+    # stage 2's pickup of stage 1 and TrainerBase's finetune_checkpoint load
+    preprocessors = []
+
+    def recording_fit(self, *args, **kwargs):
+        trainers.append(self)
+        return plain["fit"](self, *args, **kwargs)
+
+    def timed_step(self, *args, **kwargs):
+        if self not in first_weights:  # the weights the run starts from
+            first_weights[self] = self.model.text_encoder.embed.weight.detach().cpu().clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain["train_step"](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_s.append((self.mode, time.perf_counter() - t0))
+        return out
+
+    def recording_load(path):
+        loaded.append(Path(path))
+        return plain["load_checkpoint"](path)
+
+    def recording_preprocess(self, *args, **kwargs):
+        preprocessors.append(self)
+        return plain["preprocess"](self, *args, **kwargs)
+
+    cwd = Path.cwd()
+    (work / "elsewhere").mkdir()
+    os.chdir(work / "elsewhere")
+    Trainer.fit, Trainer.train_step = recording_fit, timed_step
+    st2_train.load_checkpoint = train_loop.load_checkpoint = recording_load
+    Preprocessor.preprocess = recording_preprocess
+    log_mel.launches = 0
+    log_mel.fft_launches = 0
+    mrf_stage.launches = 0
+    try:
+        run("preprocess text-to-wav", "preprocess", "text-to-wav", cfg_path)
+        mel_launches, fft_launches = log_mel.launches, log_mel.fft_launches
+        run("train text-to-wav --mode first", "train", "text-to-wav", cfg_path, "--mode", "first")
+        run("train text-to-wav --mode second", "train", "text-to-wav", cfg_path,
+            "--mode", "second")
+        stage1, stage2 = trainers
+        resumed_from = stage2.ckpt_dir / "stage-2-last.ckpt"
+        run("resume", "train", "text-to-wav", cfg_path, "--mode", "second",
+            "-c", f"training.finetune_checkpoint={resumed_from}",
+            "-c", f"training.epochs_2nd={ST2_EPOCHS + 1}",
+            "-c", f"training.max_steps={stage2.global_step + ST2_RESUME_STEPS}")
+    finally:
+        Trainer.fit, Trainer.train_step = plain["fit"], plain["train_step"]
+        st2_train.load_checkpoint = train_loop.load_checkpoint = plain["load_checkpoint"]
+        Preprocessor.preprocess = plain["preprocess"]
+        os.chdir(cwd)
+    st2_mrf_launches = mrf_stage.launches
+    resumed = trainers[2]
+
+    # preprocessing: the ood step and every feature batch's log-mel
+    pre = preprocessors[0]
+    ood = pre.save_dir / "ood" / "default.psv"
+    if not ood.is_file() or len(ood.read_text().splitlines()) < 2:
+        fail(f"preprocess text-to-wav wrote no OOD text at {ood}")
+    if mel_launches == 0 or fft_launches != len(pre.last_batch_shapes):
+        fail(f"preprocess text-to-wav: {mel_launches} log_mel launches, {fft_launches} FFT "
+             f"launches, {len(pre.last_batch_shapes)} feature batches")
+    served_mel, _ = check_served_features(pre)
+
+    # the runs
+    if (stage1.mode, stage2.mode, resumed.mode) != ("first", "second", "second"):
+        fail("the three runs were not stage 1, stage 2 and its resume")
+    if any(t.compute_dtype != "bfloat16" or t.device.type != "cuda" for t in trainers):
+        fail(f"StyleTTS2 trained in {[(t.compute_dtype, str(t.device)) for t in trainers]}")
+    records1 = check_st2_run(stage1, "stage-1-last.ckpt", ST2_GEN_KEYS)
+    records2 = check_st2_run(stage2, "stage-2-last.ckpt", ST2_GEN_KEYS | {"diff", "sty"})
+    if records1[0]["training/gen/s2s"] != 0.0 or records1[-1]["training/gen/s2s"] == 0.0:
+        fail(f"stage 1's TMA did not come in at epoch 1: {records1}")
+    stage1_ckpt = stage1.ckpt_dir / "stage-1-last.ckpt"
+    if loaded[:1] != [stage1_ckpt]:
+        fail(f"stage 2 loaded {loaded}, not {stage1_ckpt}")
+    embed = load_checkpoint(stage1_ckpt)["state_dict"]["generator"]["params"]["text_encoder"][
+        "Embed_0"]["embedding"]
+    if not torch.equal(first_weights[stage2], torch.from_numpy(embed)):
+        fail("stage 2 did not start from stage 1's weights")
+    if loaded[1:] != [resumed_from] or resumed.global_step != stage2.global_step + ST2_RESUME_STEPS:
+        fail(f"the resume loaded {loaded[1:]} and ended at step {resumed.global_step}")
+    final = load_checkpoint(resumed.ckpt_dir / "stage-2-last.ckpt")
+    if int(final["optimizer_states"]["gen"]["0"]["count"]) != resumed.global_step:
+        fail("the resumed run's optimizer count does not continue the checkpoint's")
+
+    # float32 card vs CPU, a step split, and the trained checkpoint served
+    config = load_config_from_path("text-to-wav", cfg_path)
+    f32 = st2_float32_card_vs_cpu(config, stage2.ckpt_dir / "stage-2-last.ckpt", work)
+    batch = next(stage2.dataset.batches(2, shuffle=True, seed=0, drop_last=True))
+    batch.pop("basenames")
+    split = split_st2_step(stage2, to_device(batch, stage2.device))
+    split["card"] = card
+    print("styletts2 train split " + json.dumps(split), flush=True)
+
+    ckpt = stage2.ckpt_dir / "stage-2-last.ckpt"
+    env = os.environ.pop("EVERYVOICE_DEVICE", None)
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["synthesize", "text-to-wav", str(ckpt), "-t", TEXTS[0],
+                           "-o", str(work / "served")])
+    finally:
+        if env is not None:
+            os.environ["EVERYVOICE_DEVICE"] = env
+    devices = [line for line in err.getvalue().splitlines() if line.startswith("device: ")]
+    if rc != 0 or devices != ["device: cuda"] or len(list((work / "served" / "wav").glob("*.wav"))) != 1:
+        fail(f"synthesize text-to-wav from the trained checkpoint: exit {rc}, {devices}\n"
+             f"{err.getvalue()[-2000:]}")
+    model, st2_config, tp, _ = st2.load_styletts2_model(ckpt)
+    served = serve_st2(model, st2_config, tp, card, "trained", (REQUESTS[0], REQUESTS[2]))
+    del model
+
+    steps = {mode: sorted(s for m, s in step_s[:] if m == mode) for mode in ("first", "second")}
+    row = {"utterances": ST2_UTTERANCES, "walls_s": walls,
+           "steps": {"first": stage1.global_step, "second": stage2.global_step,
+                     "resumed": resumed.global_step},
+           "median_step_ms": {m: 1e3 * s[len(s) // 2] for m, s in steps.items() if s},
+           "gen_total": {"first": [records1[0]["training/gen/total"],
+                                   records1[-1]["training/gen/total"]],
+                         "second": [records2[0]["training/gen/total"],
+                                    records2[-1]["training/gen/total"]]},
+           "log_mel_launches": mel_launches, "fft_launches": fft_launches,
+           "mrf_launches": st2_mrf_launches, "phase_s": time.perf_counter() - t_phase,
+           "card": card}
+    print("styletts2 train " + json.dumps(row), flush=True)
+    return {"mel_launches": mel_launches, "fft_launches": fft_launches,
+            "mrf_launches": st2_mrf_launches, "served_mel": served_mel, "f32": f32,
+            "split": split, "served": served, "row": row}
+
+
 def timed_build(name: str) -> tuple:
     from everyvoice_tpu_torch.ops import _build
 
@@ -2132,6 +2505,7 @@ def main() -> int:
                                   served["requests"], card)
         cli_run = cli_phase(tmp, voc_path, card)
         styletts2_phase(tmp, card)
+        st2_trained = st2_training_phase(tmp, card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -2148,6 +2522,7 @@ def main() -> int:
         "trained_vocoder_serving_launches": vocoder["serving_launches"],
         "phone_voice_launches": phone["mrf_launches"],
         "cli_launches": cli_run["mrf_launches"],
+        "styletts2_training_launches": st2_trained["mrf_launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + training_stages
@@ -2163,13 +2538,16 @@ def main() -> int:
         "route": "cuda",
         "source": "everyvoice_tpu_torch/ops/csrc/mel.cu",
         "replaces": "everyvoice_tpu/ops/mel_pallas.py:67",
-        "launches": prep["launches"] + phone["mel_launches"] + cli_run["mel_launches"],
-        "fft_launches": prep["fft_launches"] + phone["mel_launches"] + cli_run["mel_launches"],
+        "launches": (prep["launches"] + phone["mel_launches"] + cli_run["mel_launches"]
+                     + st2_trained["mel_launches"]),
+        "fft_launches": (prep["fft_launches"] + phone["mel_launches"] + cli_run["mel_launches"]
+                         + st2_trained["fft_launches"]),
         "phone_voice_launches": phone["mel_launches"],
         "cli_launches": cli_run["mel_launches"],
+        "styletts2_training_launches": st2_trained["mel_launches"],
         "design": "shared-memory radix-2 Stockham FFT (n_fft a power of two)",
         "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel + phone["served_mel"]
-                           + cli_run["served_mel"]),
+                           + cli_run["served_mel"] + st2_trained["served_mel"]),
         "ms": sum(r["kernel_ms"] for r in mel_rows),
         "plain_ms": sum(r["plain_ms"] for r in mel_rows),
         "bound_ms": sum(r["bound_ms"] for r in mel_rows),

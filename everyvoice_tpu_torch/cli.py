@@ -4,6 +4,7 @@ with the same spellings, defaults and exit codes, on ``argparse``.
 
     python -m everyvoice_tpu_torch preprocess text-to-spec config/everyvoice-text-to-spec.yaml
     python -m everyvoice_tpu_torch train text-to-spec config/everyvoice-text-to-spec.yaml
+    python -m everyvoice_tpu_torch train text-to-wav config/everyvoice-text-to-wav.yaml --mode first
     python -m everyvoice_tpu_torch synthesize from-text last.ckpt -t "Hello." --vocoder-path v.ckpt
     python -m everyvoice_tpu_torch synthesize text-to-wav styletts2.ckpt -t "Hello." -r ref.wav
 
@@ -33,7 +34,7 @@ OUTPUT_TYPES = ("wav", "spec", "textgrid", "readalong-xml", "readalong-html")
 STEPS = ("audio", "text", "pfs", "spec", "attn", "energy", "pitch", "ood")
 ROADMAP_ITEMS = {
     "device_audio": "queue 1, 'The rest' (the preprocessor's device audio path)",
-    "styletts2": "queue 1, 'StyleTTS2 training'",
+    "styletts2": "queue 1, 'StyleTTS2's pretrained components'",
     "parallelism": "queue 1, 'Parallelism'",
 }
 
@@ -79,20 +80,107 @@ def preprocess(args) -> int:
 
     if args.device_audio:
         raise not_ported("--device-audio", "device_audio")
-    steps = tuple(args.steps or ())
-    if "ood" in steps:
-        raise not_ported("-s ood (out-of-domain text for StyleTTS2)", "styletts2")
     if args.debug:
         import logging
 
         logging.getLogger("everyvoice_tpu_torch").setLevel(logging.DEBUG)
-    config = _load_config(args.model_kind, args.config_path, args.config_args)
+    kind = args.model_kind
+    config = _load_config(kind, args.config_path, args.config_args)
+    steps = tuple(args.steps or ())
     if not steps:
-        steps = (("audio", "spec") if args.model_kind == "spec-to-wav"
-                 else ("audio", "text", "spec", "attn", "energy", "pitch"))
+        steps = (("audio", "spec") if kind == "spec-to-wav"
+                 else ("audio", "text", "spec", "attn", "energy", "pitch")
+                 + (("ood",) if kind == "text-to-wav" else ()))
+    run_ood = "ood" in steps
+    steps = tuple(s for s in steps if s != "ood")
     pre = Preprocessor(config, device=_device())
-    pre.preprocess(to_process=steps, overwrite=args.overwrite, cpus=args.cpus)
+    if steps:
+        pre.preprocess(to_process=steps, overwrite=args.overwrite, cpus=args.cpus)
+    if run_ood:
+        ood_texts = _gather_ood_texts(config)
+        if ood_texts:
+            pre.preprocess_ood(ood_texts)
+            print("Wrote OOD text for languages: " + ", ".join(sorted(ood_texts)))
+        elif kind == "text-to-wav":
+            print("No OOD sources configured (training.ood_raw_data / use_validation_as_ood) "
+                  "— skipping the ood step.")
     return 0
+
+
+def _gather_ood_texts(config: dict) -> dict:
+    """Each language's out-of-domain sentences from the config's sources:
+    ``training.ood_raw_data[lang].local_path`` (plain text or a psv) and,
+    with ``use_validation_as_ood``, the validation filelist's texts. A
+    HuggingFace source needs the network, which this package does not use:
+    it is an error, naming the local file to give instead."""
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    training = config.get("training") or {}
+    texts: dict = {}
+    for lang, source in (training.get("ood_raw_data") or {}).items():
+        lines: list = []
+        local = source.get("local_path")
+        hf = source.get("hf") or {}
+        if local is not None and Path(local).is_file():
+            lines = _ood_lines_from_raw(Path(local).read_text(encoding="utf8").splitlines())
+        elif hf.get("repo_id"):
+            where = "" if local is None else f" (its local_path {local} does not exist)"
+            raise CLIError(
+                f"The OOD source for '{lang}' is the HuggingFace dataset {hf['repo_id']}"
+                f"{where}: fetching it needs the network, which the PyTorch package does not "
+                f"use. Download {hf.get('filename')} and set "
+                f"training.ood_raw_data.{lang}.local_path to it.")
+        elif local is not None:
+            print(f"OOD source for '{lang}' points at a missing file ({local}) and no "
+                  "HuggingFace source is configured; skipping that language.", file=sys.stderr)
+        lines = _filter_ood_lines(lines, training)
+        if lines:
+            texts[lang] = lines
+    if training.get("use_validation_as_ood"):
+        try:
+            rows = generic_psv_filelist_reader(training["validation_filelist"])
+        except OSError:
+            rows = []
+        by_lang: dict = {}
+        for row in rows:
+            text = (row.get("characters") or row.get("raw_text") or row.get("text")
+                    or row.get("phones") or "")
+            if text.strip():
+                by_lang.setdefault(row.get("language") or "und", []).append(text)
+        for lang, lines in by_lang.items():
+            filtered = _filter_ood_lines(lines, training)
+            if filtered:
+                texts.setdefault(lang, filtered)
+    return texts
+
+
+def _filter_ood_lines(lines: list, training: dict) -> list:
+    """The sentences of at least ``OOD_min_length`` characters; all of them
+    (with a warning) where none is."""
+    min_length = training.get("OOD_min_length") or 0
+    kept = [line for line in lines if len(line) >= min_length]
+    if lines and not kept:
+        print(f"All {len(lines)} OOD sentences are shorter than OOD_min_length={min_length}; "
+              "keeping them anyway (lower OOD_min_length to silence this).", file=sys.stderr)
+        return lines
+    return kept
+
+
+def _ood_lines_from_raw(raw_lines: list) -> list:
+    """One sentence a line, or a psv's ``phones``, ``characters`` or
+    ``text`` column (the first of them in its header)."""
+    if not raw_lines:
+        return []
+    header = [f.strip() for f in raw_lines[0].split("|")]
+    for column in ("phones", "characters", "text"):
+        if column in header:
+            import csv
+
+            reader = csv.DictReader(raw_lines, delimiter="|", quoting=csv.QUOTE_NONE,
+                                    escapechar="\\")
+            return [(row.get(column) or "").strip() for row in reader
+                    if (row.get(column) or "").strip()]
+    return [line.strip() for line in raw_lines if line.strip()]
 
 
 def _train_device(args):
@@ -118,15 +206,29 @@ def train(args) -> int:
     device = _train_device(args)
     kind = args.model_kind
     config = _load_config(kind, args.config_path, args.config_args)
+    options = {}
     if kind == "text-to-spec":
         from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec as fit
-    else:
+    elif kind == "spec-to-wav":
         from everyvoice_tpu_torch.train.spec_to_wav import train_spec_to_wav as fit
+    else:
+        from everyvoice_tpu_torch.models.styletts2.train import pretrained_files
+        from everyvoice_tpu_torch.train.text_to_wav import train_text_to_wav as fit
+
+        found = pretrained_files(config, args.mode)
+        if found:
+            raise not_ported("StyleTTS2 training with pretrained components ("
+                             + ", ".join(f"{what} = {path}" for what, path in found) + ")",
+                             "styletts2")
+        options["mode"] = args.mode
     trainer = fit(config, gradient_clip_val=args.gradient_clip_val,
                   profile_steps=args.profile_steps,
                   steps_per_execution=args.steps_per_execution,
-                  compute_precision=args.compute_precision, device=device)
-    print(f"Training complete; checkpoints at {trainer.ckpt_dir}")
+                  compute_precision=args.compute_precision, device=device, **options)
+    if kind == "text-to-wav":
+        print(f"Stage {args.mode} training complete; checkpoints at {trainer.ckpt_dir}")
+    else:
+        print(f"Training complete; checkpoints at {trainer.ckpt_dir}")
     return 0
 
 
@@ -442,10 +544,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     # The pipeline verbs first, the rest alphabetically (MainCommandOrder).
     p = verbs.add_parser("preprocess", help="Preprocess a dataset.")
-    p.add_argument("model_kind", choices=("text-to-spec", "spec-to-wav"))
+    p.add_argument("model_kind", choices=("text-to-spec", "spec-to-wav", "text-to-wav"))
     p.add_argument("config_path", type=_existing)
     p.add_argument("-s", "--steps", action="append", choices=STEPS,
-                   help="Steps to run (default: all relevant for the model kind).")
+                   help="Steps to run (default: all relevant for the model kind; 'ood' "
+                   "stages out-of-domain text for StyleTTS2).")
     p.add_argument("-O", "--overwrite", action="store_true",
                    help="Redo all preprocessing even when artifacts exist.")
     p.add_argument("-C", "--cpus", default=1, type=int, help="Host workers for audio IO.")
@@ -458,9 +561,14 @@ def build_parser() -> argparse.ArgumentParser:
     p = verbs.add_parser("train", help="Train a model.")
     kinds = p.add_subparsers(dest="model_kind", metavar="MODEL", required=True)
     for kind, what in (("text-to-spec", "Train a FastSpeech2 feature-prediction model."),
-                       ("spec-to-wav", "Train a HiFiGAN (or iSTFTNet) vocoder.")):
+                       ("spec-to-wav", "Train a HiFiGAN (or iSTFTNet) vocoder."),
+                       ("text-to-wav", "Train a StyleTTS2 end-to-end model (two stages).")):
         k = kinds.add_parser(kind, help=what)
         _common_train_options(k)
+        if kind == "text-to-wav":
+            k.add_argument("--mode", choices=("first", "second"), default="first",
+                           help="first: acoustic pretraining; second: joint training with "
+                           "the style diffusion, from the first stage's checkpoint.")
         k.set_defaults(run=train)
 
     p = verbs.add_parser("synthesize", help="Synthesize speech from text or spectrograms.")

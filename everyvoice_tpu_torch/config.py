@@ -325,7 +325,8 @@ ST2_PRETRAINED = {"f0": ST2_PRETRAINED_F0, "asr": ST2_PRETRAINED_ASR,
                   "plbert": ST2_PRETRAINED_PLBERT,
                   "pretrained_symbols": PRETRAINED_SYMBOL_TABLE}
 # Path-typed fields: the JAX package's checkpoint dump drops a Path value
-# (a None stays). (section keys, field) pairs; "*" is every dataset.
+# (a None stays). (section keys, field) pairs; "*" is every item of a list
+# or every value of a mapping.
 PATH_FIELDS = (
     ((), "path_to_model_config_file"), ((), "path_to_training_config_file"),
     ((), "path_to_preprocessing_config_file"), ((), "path_to_text_config_file"),
@@ -335,6 +336,11 @@ PATH_FIELDS = (
     (("preprocessing",), "save_dir"), (("preprocessing",), "path_to_audio_config_file"),
     (("preprocessing", "source_data", "*"), "data_dir"),
     (("preprocessing", "source_data", "*"), "filelist"),
+    (("training",), "first_stage_path"), (("training",), "root_path"),
+    (("training", "ood_raw_data", "*"), "local_path"),
+    (("pretrained", "f0"), "local_path"),
+    (("pretrained", "asr"), "local_checkpoint"), (("pretrained", "asr"), "local_config"),
+    (("pretrained", "plbert"), "local_checkpoint"), (("pretrained", "plbert"), "local_config"),
 )
 
 
@@ -448,7 +454,10 @@ def _drop_paths(node, section: tuple, field: str):
             node.pop(field)
         return
     head, rest = section[0], section[1:]
-    children = node if head == "*" else [node.get(head)] if isinstance(node, dict) else []
+    if head == "*":
+        children = node.values() if isinstance(node, dict) else node
+    else:
+        children = [node.get(head)] if isinstance(node, dict) else []
     for child in children or []:
         _drop_paths(child, rest, field)
 

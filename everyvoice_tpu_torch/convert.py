@@ -42,8 +42,9 @@ PL-BERT and its projection), the TMA aligner, both style encoders, the
 prosody predictor, the AdaIN decoder, the denoiser and the projections. An
 ``asr`` checkpoint's ``text_aligner`` subtree is not a torch parameter: the
 serving loader keeps it aside (``StyleTTS2.text_aligner_params``) and
-``torch_to_flax`` writes it back. (StyleTTS2's tables serve parameters:
-its optimizer moments come with the training slice.)
+``torch_to_flax`` writes it back. The StyleTTS2 trainer's checkpoint tree
+is HiFiGAN's (``hifigan_tree``), its generator the StyleTTS2 stack; the
+optimizer moments map through the same tables.
 
 HiFiGAN's generator maps to ``{"params": ...}`` (``ResBlock1_j`` or
 ``ResBlock2_j``; the post conv or the iSTFT head as ``Conv_1``), its
@@ -536,11 +537,12 @@ def torch_to_flax(state_dict: dict, model) -> dict:
     return tree
 
 
-def hifigan_tree(generator_state: dict, disc_state: dict, generator: HiFiGANGenerator,
+def hifigan_tree(generator_state: dict, disc_state: dict, generator,
                  discriminators: HiFiGANDiscriminators) -> dict:
-    """The JAX HiFiGAN trainer's checkpoint tree ``{"generator": {"params":
+    """The JAX GAN trainers' checkpoint tree ``{"generator": {"params":
     ...}, "discriminators": {"mpd": {"params": ...}, "msd": {"params":
-    ...}}}`` from the two modules' state dicts (or moments)."""
+    ...}}}`` from the two modules' state dicts (or moments); the generator
+    is HiFiGAN's or StyleTTS2's stack."""
     return {"generator": torch_to_flax(generator_state, generator),
             "discriminators": torch_to_flax(disc_state, discriminators)}
 

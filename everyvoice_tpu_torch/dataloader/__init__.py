@@ -1,11 +1,12 @@
-"""Host-side data pipelines of FastSpeech2 and HiFiGAN training (counterpart
-of everyvoice_tpu/dataloader/__init__.py).
+"""Host-side data pipelines of FastSpeech2, HiFiGAN and StyleTTS2 training
+(counterpart of everyvoice_tpu/dataloader/__init__.py).
 
 FastSpeech2 batches are padded numpy arrays of one shape for the whole run:
 text to the corpus's longest token sequence, frames to the model's
 ``max_length``. HiFiGAN batches are one random (mel, audio) segment an item,
-drawn on the host as the JAX package draws them. The final ragged batch
-repeats its last item. Artifacts are read with ``np.load`` (and wavs with
+drawn on the host as the JAX package draws them. StyleTTS2 batches pad
+frames to ``training.max_len`` and audio to as many hops. The final ragged
+batch repeats its last item. Artifacts are read with ``np.load`` (and wavs with
 ``dsp.audio_io.read_wav``) on a small thread pool; the JAX package's native
 C reader is not copied.
 """
@@ -335,4 +336,153 @@ class HiFiGANDataset:
                 batch["mel"][i, : mel.shape[0]] = mel
                 audio = it["audio"][start * hop : start * hop + segment_size]
                 batch["audio"][i, : len(audio)] = audio
+            yield batch
+
+
+class StyleTTS2Dataset:
+    """Batches for StyleTTS2 training from a StyleTTS2 config dict
+    (``config.styletts2_config``): token ids, the mel (style reference and
+    reconstruction target), frame F0 and energy and their token averages,
+    durations and the output-rate audio, padded to ``training.max_len``
+    frames and as many hops of samples. Durations come from ``duration/``
+    artifacts where they exist; otherwise each item's frames are spread
+    evenly over its tokens (the last token takes the remainder), with one
+    warning, and the trainer's TMA aligner takes over at ``tma_epoch``."""
+
+    def __init__(self, filelist: list, config: dict, text_processor: Optional[TextProcessor] = None):
+        self.config = config
+        self.save_dir = Path(config["preprocessing"]["save_dir"])
+        self.audio_config = config["preprocessing"]["audio"]
+        self.level = config["model"]["target_text_representation_level"]
+        self.text_processor = text_processor or TextProcessor(config["text"], self.level)
+        self.n_symbols = len(self.text_processor.symbols)
+        self.max_frames = config["training"]["max_len"]
+        self.input_sr = self.audio_config["input_sampling_rate"]
+        self.output_sr = self.audio_config["output_sampling_rate"]
+        self.items = [it for it in filelist if self._usable(it)]
+        self.max_text_len = max((len(self._token_ids(it)) for it in self.items), default=1)
+        self._warned_uniform_durations = False
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def _token_column(self) -> str:
+        return "character_tokens" if self.level == "characters" else "phone_tokens"
+
+    def _token_ids(self, item: dict) -> list:
+        cached = item.get("_token_ids")
+        if cached is None:
+            cached = self.text_processor.encode_escaped_string_sequence(
+                item.get(self._token_column()) or "")
+            item["_token_ids"] = cached
+        return cached
+
+    def _path(self, item: dict, folder: str, fn: str) -> Path:
+        speaker = item.get("speaker") or "default"
+        language = item.get("language") or "default"
+        return self.save_dir / folder / FILENAME_SEP.join([item["basename"], speaker, language, fn])
+
+    def _spec_name(self) -> str:
+        return f"spec-{self.input_sr}-{self.audio_config['spec_type']}.npy"
+
+    def _usable(self, item: dict) -> bool:
+        return (bool(item.get(self._token_column()))
+                and self._path(item, "spec", self._spec_name()).exists()
+                and self._path(item, "pitch", "pitch.npy").exists()
+                and self._path(item, "audio", f"audio-{self.output_sr}.wav").exists())
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def load_item(self, idx: int) -> dict:
+        item = self.items[idx]
+        ids = np.asarray(self._token_ids(item), np.int32)
+        mel = np.load(self._path(item, "spec", self._spec_name())).T
+        audio, _ = read_wav(self._path(item, "audio", f"audio-{self.output_sr}.wav"))
+        n_frames = mel.shape[0]
+        dur_path = self._path(item, "duration", "duration.npy")
+        if dur_path.exists():
+            durations = np.load(dur_path).astype(np.int32)[: len(ids)]
+        else:
+            if not self._warned_uniform_durations:
+                self._warned_uniform_durations = True
+                logger.warning(
+                    "No duration/ artifacts found — falling back to uniform durations for "
+                    "StyleTTS2 stage-1 bootstrapping. These are wrong alignments; the "
+                    "trainer's TMA aligner takes over at tma_epoch.")
+            durations = np.full(len(ids), n_frames // max(len(ids), 1), np.int32)
+            durations[-1] += n_frames - durations.sum()
+        return {
+            "basename": item["basename"],
+            "text": ids,
+            "mel": mel.astype(np.float32),
+            "pitch": np.load(self._path(item, "pitch", "pitch.npy")).astype(np.float32),
+            "energy": np.load(self._path(item, "energy", "energy.npy")).astype(np.float32),
+            "audio": audio[0].astype(np.float32),
+            "durations": durations,
+        }
+
+    @staticmethod
+    def _token_average(frame_values: np.ndarray, durations: np.ndarray) -> np.ndarray:
+        """Each token's mean over its frames; 0 for an empty token or one
+        past the frames."""
+        out = np.zeros(len(durations), np.float32)
+        pos = 0
+        for i, d in enumerate(durations):
+            if d > 0 and pos < len(frame_values):
+                out[i] = float(np.mean(frame_values[pos : pos + d]))
+            pos += d
+        return out
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                drop_last: bool = False) -> Iterator[dict]:
+        """Padded batches of one shape: ``batch_size`` rows, the corpus's
+        longest text, ``max_len`` frames. An item's durations are cut from
+        the longest down (to 1 at least) until they fit its frames."""
+        n = len(self.items)
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(n) if shuffle else np.arange(n)
+        max_text, max_frames = self.max_text_len, self.max_frames
+        max_samples = max_frames * self.audio_config["fft_hop_size"] * (self.output_sr // self.input_sr)
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=min(os.cpu_count() or 4, 8),
+                                            thread_name_prefix="st2-io")
+        for bi in range(_n_batches(n, batch_size, drop_last)):
+            items = _parallel_load(self.load_item, list(order[bi * batch_size : (bi + 1) * batch_size]),
+                                   self._pool)
+            while len(items) < batch_size:
+                items.append(items[-1])
+            b = len(items)
+            batch = {
+                "text": np.zeros((b, max_text), np.int32),
+                "text_lengths": np.zeros((b,), np.int32),
+                "mel": np.zeros((b, max_frames, items[0]["mel"].shape[1]), np.float32),
+                "mel_lengths": np.zeros((b,), np.int32),
+                "f0_frames": np.zeros((b, max_frames), np.float32),
+                "energy_frames": np.zeros((b, max_frames), np.float32),
+                "f0_tokens": np.zeros((b, max_text), np.float32),
+                "energy_tokens": np.zeros((b, max_text), np.float32),
+                "durations": np.zeros((b, max_text), np.int32),
+                "audio": np.zeros((b, max_samples), np.float32),
+                "basenames": [it["basename"] for it in items],
+            }
+            for i, it in enumerate(items):
+                ntok = min(len(it["text"]), max_text)
+                t = min(it["mel"].shape[0], max_frames)
+                s = min(len(it["audio"]), max_samples)
+                batch["text"][i, :ntok] = it["text"][:ntok]
+                batch["text_lengths"][i] = ntok
+                batch["mel"][i, :t] = it["mel"][:t]
+                batch["mel_lengths"][i] = t
+                batch["f0_frames"][i, :t] = it["pitch"][:t]
+                batch["energy_frames"][i, :t] = it["energy"][:t]
+                dur = it["durations"][:ntok].copy()
+                overflow = max(int(dur.sum()) - t, 0)
+                while overflow > 0 and dur.max() > 1:
+                    j = int(np.argmax(dur))
+                    take = min(overflow, int(dur[j]) - 1)
+                    dur[j] -= take
+                    overflow -= take
+                batch["durations"][i, :ntok] = dur
+                batch["f0_tokens"][i, :ntok] = self._token_average(it["pitch"][:t], dur)
+                batch["energy_tokens"][i, :ntok] = self._token_average(it["energy"][:t], dur)
+                batch["audio"][i, :s] = it["audio"][:s]
             yield batch

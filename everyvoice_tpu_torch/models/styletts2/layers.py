@@ -23,8 +23,8 @@ the numbers depend on:
 The decoder's conv stack and the style encoders' convs run in the compute
 dtype; AdaIN statistics, the LSTMs, the source's phase, the iSTFT head and
 the denoiser run in float32. The decoder runs on (B, C, T), the text side
-on (B, T, C). Dropout, which acts only in training, comes with the training
-slice.
+on (B, T, C). Dropout acts in training mode only, at the JAX package's
+rates: 0.2 in the text encoder, 0.5 in the prosody predictor.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from everyvoice_tpu_torch.models.hifigan.model import (
 )
 from everyvoice_tpu_torch.models.layers import (
     NORM_EPS,
+    Dropout,
     MultiHeadAttention,
     conv2d_same_stride2,
     layer_norm,
@@ -115,7 +116,7 @@ def lstm_pair(in_dim: int, hidden: int) -> tuple:
 
 class TextEncoder(nn.Module):
     """Symbol embedding → ``n_convs`` × (weight-normed conv → LayerNorm →
-    leaky-relu 0.2) → BiLSTM, every step re-masked; float32."""
+    leaky-relu 0.2 → dropout 0.2) → BiLSTM, every step re-masked; float32."""
 
     def __init__(self, n_symbols: int, channels: int = 512, kernel_size: int = 5,
                  n_convs: int = 3):
@@ -124,6 +125,7 @@ class TextEncoder(nn.Module):
         self.convs = nn.ModuleList(
             WNConv1d(channels, channels, kernel_size) for _ in range(n_convs))
         self.norms = nn.ModuleList(nn.LayerNorm(channels, eps=NORM_EPS) for _ in range(n_convs))
+        self.drop = Dropout(0.2)
         self.lstm_fwd, self.lstm_bwd = lstm_pair(channels, channels // 2)
 
     def forward(self, tokens, mask):
@@ -132,7 +134,7 @@ class TextEncoder(nn.Module):
         x = torch.where(m, self.embed(tokens), zero)
         for conv, norm in zip(self.convs, self.norms):
             x = conv(x.transpose(1, 2)).transpose(1, 2)
-            x = F.leaky_relu(layer_norm(x, norm, torch.float32), 0.2)
+            x = self.drop(F.leaky_relu(layer_norm(x, norm, torch.float32), 0.2))
             x = torch.where(m, x, zero)
         return torch.where(m, bilstm(self.lstm_fwd, self.lstm_bwd, x), zero)
 
@@ -176,12 +178,14 @@ class StyleEncoder(nn.Module):
 
 
 class ProsodyPredictor(nn.Module):
-    """Text encodings and a prosodic style → duration logits over
-    ``max_dur`` classes, and F0 and energy per token; float32."""
+    """Text encodings and a prosodic style → BiLSTM → dropout 0.5 →
+    duration logits over ``max_dur`` classes, and F0 and energy per token;
+    float32."""
 
     def __init__(self, style_dim: int = 128, hidden: int = 512, max_dur: int = 50):
         super().__init__()
         self.lstm_fwd, self.lstm_bwd = lstm_pair(hidden + style_dim, hidden // 2)
+        self.drop = Dropout(0.5)
         self.duration = nn.Linear(hidden, max_dur)
         self.adain = AdaIN1d(style_dim, hidden)
         self.f0_hidden = nn.Linear(hidden, hidden)
@@ -191,7 +195,7 @@ class ProsodyPredictor(nn.Module):
 
     def forward(self, text_enc, style, mask):
         s = style[:, None, :].expand(-1, text_enc.shape[1], -1)
-        x = bilstm(self.lstm_fwd, self.lstm_bwd, torch.cat([text_enc, s], dim=-1))
+        x = self.drop(bilstm(self.lstm_fwd, self.lstm_bwd, torch.cat([text_enc, s], dim=-1)))
         zero = torch.zeros((), device=x.device)
         dur_logits = torch.where(mask[..., None], self.duration(x), zero)
         y = self.adain(x.transpose(1, 2), style).transpose(1, 2)
@@ -324,6 +328,10 @@ class StyleDecoder(nn.Module):
                      self.istft_hop, center=True, length=length)
 
 
+# The denoiser's Fourier frequencies of log σ.
+SIGMA_FREQS = np.exp(np.linspace(0, 6, 32)).astype(np.float32)
+
+
 class DiffusionDenoiser(nn.Module):
     """The style diffusion's transformer denoiser: the noisy style, Fourier
     features of log σ and the text embedding as three tokens through
@@ -343,8 +351,7 @@ class DiffusionDenoiser(nn.Module):
         self.ff1 = nn.ModuleList(nn.Linear(dim, dim * multiplier) for _ in range(num_layers))
         self.ff2 = nn.ModuleList(nn.Linear(dim * multiplier, dim) for _ in range(num_layers))
         self.out = nn.Linear(dim, style_dim)
-        freqs = torch.from_numpy(np.exp(np.linspace(0, 6, 32)).astype(np.float32))
-        self.register_buffer("freqs", freqs, persistent=False)
+        self.register_buffer("freqs", torch.from_numpy(SIGMA_FREQS), persistent=False)
 
     def forward(self, noisy_style, sigma, text_embedding):
         log_sigma = torch.log(sigma)[:, None] * self.freqs[None, :]

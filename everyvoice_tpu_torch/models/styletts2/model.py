@@ -16,6 +16,13 @@ As in the JAX package, ``from_config`` gives the decoder none of the
 config's ``upsample_initial_channel``, ``resblock_kernel_sizes`` or
 ``resblock_dilation_sizes``: its stack is always 512 channels with kernels
 3/7/11 and dilations 1/3/5, the shape every checkpoint has.
+
+``forward`` is the training forward (the JAX module's ``__call__`` with
+teacher durations and F0): the TMA attention over the reference mel, the
+prosody prediction, frames regulated to ``max_frames``, and the decode of
+one clip of ``segment_frames`` an utterance where the caller gives the
+clips' starts. ``align_text_mel`` is the aligner alone. Dropout acts in
+training mode; the caller draws the decoder's source noise.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 from everyvoice_tpu_torch.models.fs2.alignment import AlignmentEncoder
+from everyvoice_tpu_torch.models.layers import lengths_to_mask, regulate_length
 from everyvoice_tpu_torch.models.styletts2.layers import (
     DiffusionDenoiser,
     ProsodyPredictor,
@@ -45,6 +53,7 @@ class StyleTTS2(nn.Module):
         style_dim: int = 128,
         max_dur: int = 50,
         max_frames: int = 800,
+        segment_frames: Optional[int] = None,
         n_mels: int = 80,
         sample_rate: int = 22050,
         hop: int = 256,
@@ -67,6 +76,7 @@ class StyleTTS2(nn.Module):
         self.style_dim = style_dim
         self.max_dur = max_dur
         self.max_frames = max_frames
+        self.segment_frames = segment_frames
         self.hop = hop
         self.plbert_geometry = dict(plbert_geometry) if plbert_geometry else None
         self.asr_geometry = dict(asr_geometry) if asr_geometry else None
@@ -106,12 +116,16 @@ class StyleTTS2(nn.Module):
         """From a config filled by ``config.styletts2_config``."""
         m = config["model"]
         audio = config["preprocessing"]["audio"]
+        t = config["training"]
+        # Decoder clips in training, unless they would cover max_len.
+        segment = t["decoder_segment_frames"]
         return cls(
             n_symbols=n_symbols,
             hidden_dim=m["hidden_dim"],
             style_dim=m["style_dim"],
             max_dur=m["max_dur"],
-            max_frames=config["training"]["max_len"],
+            max_frames=t["max_len"],
+            segment_frames=segment if (segment or 0) < t["max_len"] else None,
             n_mels=audio["n_mels"],
             sample_rate=audio["output_sampling_rate"],
             hop=audio["fft_hop_size"],
@@ -131,11 +145,15 @@ class StyleTTS2(nn.Module):
         )
 
     # -- the pieces serving runs ---------------------------------------------
-    def encode_text(self, tokens, mask):
-        """The acoustic text encoding. The JAX serving pipeline passes no
-        language id here, so a multilingual model's language embedding is
-        not added in serving, and it is not here either."""
-        return self.text_encoder(tokens, mask)
+    def encode_text(self, tokens, mask, language_id=None):
+        """The acoustic text encoding, plus a multilingual model's language
+        embedding where ``language_id`` is given. The JAX serving pipeline
+        passes none, so serving adds no language embedding; training adds
+        it where its batch carries language ids."""
+        enc = self.text_encoder(tokens, mask)
+        if self.multilingual and language_id is not None:
+            enc = enc + self.language_proj(self.language_embed(language_id))[:, None, :]
+        return enc
 
     def extract_styles(self, ref_mel):
         return self.acoustic_style_encoder(ref_mel), self.prosodic_style_encoder(ref_mel)
@@ -169,6 +187,53 @@ class StyleTTS2(nn.Module):
         is the source's (B, T·hop) standard normal draw. The JAX decoder's
         energy argument is unused there, so it is absent here."""
         return self.decoder(frames, f0_frames, acoustic_style, noise)
+
+    # -- training ----------------------------------------------------------
+    def align_text_mel(self, tokens, text_lengths, mel, mel_lengths, language_id=None):
+        """The TMA attention between the text and the mel: (attn_soft,
+        attn_logprob), each (B, T_mel, N_text). A model with the pretrained
+        ASR aligner (an ``asr`` geometry) has no TMA aligner: training it
+        waits for ``ROADMAP.md``'s item for the pretrained components."""
+        mask = lengths_to_mask(text_lengths, tokens.shape[1])
+        mel_mask = lengths_to_mask(mel_lengths, mel.shape[1])
+        return self.tma_aligner(self.encode_text(tokens, mask, language_id), mel, mask, mel_mask)
+
+    def forward(self, tokens, text_lengths, ref_mel, mel_lengths, durations, f0_frames,
+                noise, segment_starts=None, language_id=None) -> dict:
+        """The training forward on teacher durations and F0: the text side
+        and the TMA attention over the reference mel at full length, then
+        the frames (and F0) regulated to ``max_frames`` and, where
+        ``segment_starts`` (B,) is given and the model has
+        ``segment_frames``, one clip an utterance decoded; the whole
+        ``max_frames`` otherwise. ``noise`` is the decoder source's standard
+        normal draw, (B, decoded frames · hop). The JAX module's energy
+        frames reach nothing the decoder reads, so there is no such
+        argument here."""
+        mask = lengths_to_mask(text_lengths, tokens.shape[1])
+        text_enc = self.encode_text(tokens, mask, language_id)
+        acoustic_style, prosodic_style = self.extract_styles(ref_mel)
+        attn_soft, attn_logprob = self.tma_aligner(
+            text_enc, ref_mel, mask, lengths_to_mask(mel_lengths, ref_mel.shape[1]))
+        dur_logits, f0_pred, energy_pred = self.predict_prosody(
+            self.prosody_encoding(tokens, mask, text_enc), prosodic_style, mask)
+        frames, frame_mask, total = regulate_length(text_enc, durations, self.max_frames)
+        frames = self.frame_proj(frames) + self.f0_embed(f0_frames[..., None])
+        if segment_starts is not None and self.segment_frames is not None:
+            seg = self.segment_frames
+            starts = torch.clamp(segment_starts.long(), 0, self.max_frames - seg)
+            index = starts[:, None] + torch.arange(seg, device=starts.device)
+            frames = torch.gather(frames, 1, index[..., None].expand(-1, -1, frames.shape[-1]))
+            f0_frames = torch.gather(f0_frames, 1, index)
+        return {
+            "text_encoding": text_enc, "acoustic_style": acoustic_style,
+            "prosodic_style": prosodic_style, "attn_soft": attn_soft,
+            "attn_logprob": attn_logprob,
+            "text_embedding": self.text_context_embedding(tokens, mask),
+            "duration_logits": dur_logits, "f0_prediction": f0_pred,
+            "energy_prediction": energy_pred,
+            "wav": self.decode(frames, f0_frames, acoustic_style, noise),
+            "frame_mask": frame_mask, "frame_lengths": total, "duration_used": durations,
+        }
 
 
 def sample_style_diffusion(denoiser, noise: torch.Tensor, text_embedding: torch.Tensor,

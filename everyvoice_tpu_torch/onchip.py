@@ -4,8 +4,9 @@ and power limit, the requests they send, seeded full-width checkpoints to
 serve them from (FastSpeech2 + HiFiGAN V1, and StyleTTS2 with or without
 the multilingual PL-BERT), a seeded wav corpus to preprocess, the vocoder
 training configs on that corpus (HiFiGAN V1 at its default full width, and
-the iSTFTNet variant), and a project of config files over a corpus, laid
-out as the JAX package's wizard lays one out.
+the iSTFTNet variant), a project of config files over a corpus, laid out as
+the JAX package's wizard lays one out, and a StyleTTS2 training project on
+it with an out-of-domain text file.
 
 The checkpoints hold random FastSpeech2 and HiFiGAN V1 weights at the
 default widths, drawn from a ``torch.Generator``, with the duration head's
@@ -36,6 +37,7 @@ from everyvoice_tpu_torch.text import TextProcessor
 from everyvoice_tpu_torch.train.checkpoint import save_checkpoint
 from everyvoice_tpu_torch.utils import (
     generic_psv_filelist_reader,
+    load_config_file,
     write_config_file,
     write_filelist,
 )
@@ -278,3 +280,25 @@ def write_project(root: Path, filelist: Path, wav_dir: Path, name: str = "cli-pr
         config["training"] = dict(training)
         write_config_file(config_dir / files[kind], config)
     return config_dir
+
+
+def write_styletts2_project(root: Path, n_utts: int, seed: int = 0, name: str = "st2-project",
+                            **training) -> Path:
+    """A StyleTTS2 training project over a seeded corpus of ``n_utts``
+    utterances (``write_corpus``), as ``write_project`` lays it out, its
+    text-to-wav config given an out-of-domain source (a plain-text file of
+    ``TEXTS``, one sentence a line, for the ``default`` language) and the
+    ``training`` fields given (epochs, phases, ``max_steps``). Returns the
+    path of ``everyvoice-text-to-wav.yaml``."""
+    root = Path(root)
+    filelist, wavs, _ = write_corpus(root / "corpus", n_utts, seed=seed)
+    config_dir = write_project(root, filelist, wavs, name=name,
+                               symbols={"characters": list("abcdefghijklmnopqrstuvwxyz")})
+    ood = root / "ood.txt"
+    ood.write_text("\n".join(TEXTS) + "\n", encoding="utf8")
+    path = config_dir / f"{CONFIG_STEMS['text-to-wav']}.yaml"
+    config = load_config_file(path)
+    config["training"].update(training)
+    config["training"]["ood_raw_data"] = {"default": {"local_path": str(ood.resolve())}}
+    write_config_file(path, config)
+    return path

@@ -25,8 +25,9 @@ Steps, in order, as the JAX package runs them:
 
 Artifact names and layout are the JAX package's:
 ``{save_dir}/{audio,spec,attn,energy,pitch,pfs}/basename--speaker--language--<name>``.
-Not ported yet (they raise ``NotImplementedError``): the device audio path
-(``device_audio=True``) and ``preprocess_ood``.
+``preprocess_ood`` writes StyleTTS2's out-of-domain sentences under
+``ood/``. Not ported yet (it raises ``NotImplementedError``): the device
+audio path (``device_audio=True``).
 """
 
 from __future__ import annotations
@@ -664,4 +665,10 @@ class Preprocessor:
         )
 
     def preprocess_ood(self, ood_texts_by_lang: dict) -> None:
-        raise NotImplementedError(f"preprocess_ood (StyleTTS2 OOD text) {LATER_SLICE}")
+        """StyleTTS2's out-of-domain text: ``{save_dir}/ood/<lang>.psv``, a
+        ``text`` column of each language's non-blank sentences."""
+        ood_dir = self.save_dir / "ood"
+        ood_dir.mkdir(parents=True, exist_ok=True)
+        for lang, lines in ood_texts_by_lang.items():
+            write_filelist([{"text": line} for line in lines if line.strip()],
+                           ood_dir / f"{lang}.psv")

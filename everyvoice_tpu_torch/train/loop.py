@@ -231,7 +231,7 @@ class TrainerBase:
                     step=step, epoch=epoch, opt_state=opt_state,
                     lang2id=getattr(self, "lang2id", None),
                     speaker2id=getattr(self, "speaker2id", None),
-                    stats=getattr(self, "stats", None),
+                    stats=getattr(self, "stats", None), extra=self.checkpoint_extra(),
                 )
             except BaseException as e:  # raised again on the training thread
                 self._ckpt_error = e
@@ -239,6 +239,10 @@ class TrainerBase:
         self.wait_for_checkpoints()
         self._ckpt_thread = threading.Thread(target=write, daemon=False)
         self._ckpt_thread.start()
+
+    def checkpoint_extra(self) -> Optional[dict]:
+        """Keys a trainer adds to its checkpoints' header."""
+        return None
 
     def wait_for_checkpoints(self) -> None:
         if self._ckpt_thread is not None:

@@ -4,7 +4,8 @@ alignment stands in for the CPU's only where the two are a tie on the CPU
 log-probabilities that part by far less than a float32 rounding of the
 path's score, and refused for a path that scores worse by a whole unit.
 Also: ``alignment_ties.py``, which measures how often the devices part,
-imports nothing of JAX."""
+imports nothing of JAX; and phase 12's ``check_st2_run`` reads a CPU
+StyleTTS2 run."""
 
 import importlib.util
 from pathlib import Path
@@ -76,3 +77,58 @@ def test_alignment_ties_imports_nothing_of_jax():
     for name in FORBIDDEN:
         assert f"import {name}" not in source and f"from {name} " not in source
         assert f"from {name}." not in source
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one thread beside the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_check_st2_run_reads_a_stage_run(chip_smoke, tmp_path, monkeypatch, one_torch_thread):
+    """``check_st2_run`` (phase 12) passes a CPU stage-1 run of a small
+    StyleTTS2 over two epochs of one synthetic batch, returning its
+    training records, and fails on a checkpoint whose stage tag is not the
+    run's."""
+    from everyvoice_tpu_torch.config import styletts2_config
+    from everyvoice_tpu_torch.models.styletts2.train import StyleTTS2Trainer
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.train import checkpoint
+    from test_torch_cuda import _st2_batch
+
+    config = styletts2_config({
+        "contact": {"contact_name": "Smoke", "contact_email": "smoke@example.org"},
+        "model": {"hidden_dim": 32, "style_dim": 16, "max_dur": 20,
+                  "decoder": {"mpd_layers": [2], "msd_layers": 1, "upsample_rates": [8],
+                              "upsample_kernel_sizes": [16], "gen_istft_n_fft": 64,
+                              "gen_istft_hop_size": 32},
+                  "diffusion": {"transformer": {"num_layers": 1, "num_heads": 2,
+                                                "head_features": 8}}},
+        "training": {"max_len": 64, "decoder_segment_frames": 16, "epochs_1st": 2,
+                     "losses": {"tma_epoch": 1},
+                     "logger": {"save_dir": str(tmp_path), "name": "smoke"}},
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}})
+
+    class Data:
+        text_processor = TextProcessor(config["text"])
+        n_symbols = len(text_processor.symbols)
+        items: list = []
+
+        def batches(self, *args, **kwargs):
+            yield {k: v.numpy() for k, v in _st2_batch("cpu").items()}
+
+    trainer = StyleTTS2Trainer(config, Data(), Data(), {"default": 0}, run_dir=tmp_path / "run",
+                               mode="first", device="cpu")
+    trainer.fit(log_every=1)
+    failures = []
+    monkeypatch.setattr(chip_smoke, "fail", failures.append)
+    records = chip_smoke.check_st2_run(trainer, "stage-1-last.ckpt", chip_smoke.ST2_GEN_KEYS)
+    assert failures == [] and [r["step"] for r in records] == [1, 2]
+    assert records[0]["training/gen/s2s"] == 0.0 < records[1]["training/gen/s2s"]
+    load = checkpoint.load_checkpoint
+    monkeypatch.setattr(checkpoint, "load_checkpoint", lambda path: {**load(path), "stage": "second"})
+    chip_smoke.check_st2_run(trainer, "stage-1-last.ckpt", chip_smoke.ST2_GEN_KEYS)
+    assert failures and "header or trees" in failures[0]

@@ -19,6 +19,8 @@ Tolerances, with their reasons:
 - ``evaluate``'s JSON: 1e-6 (rounded metrics from float32 DSP).
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -61,6 +63,17 @@ TINY = {
         "model.resblock_dilation_sizes=[[1, 3]]", "model.mpd_layers=[2]", "model.msd_layers=1",
         "preprocessing.audio.vocoder_segment_size=1024", "training.batch_size=2",
         "training.max_steps=2"],
+    # StyleTTS2's decoder is 512 channels whatever the config says; one
+    # upsampling stage and an iSTFT of hop 32 keep it short
+    "text-to-wav": [
+        "model.hidden_dim=32", "model.style_dim=16", "model.decoder.mpd_layers=[2]",
+        "model.decoder.msd_layers=1", "model.decoder.upsample_rates=[8]",
+        "model.decoder.upsample_kernel_sizes=[16]", "model.decoder.gen_istft_n_fft=64",
+        "model.decoder.gen_istft_hop_size=32", "model.diffusion.transformer.num_layers=1",
+        "model.diffusion.transformer.num_heads=2", "model.diffusion.transformer.head_features=8",
+        "training.max_len=48", "training.decoder_segment_frames=16", "training.batch_size=2",
+        "training.max_steps=2", "training.epochs_1st=1", "training.epochs_2nd=1",
+        "training.save_top_k_ckpts=0"],
 }
 
 
@@ -153,6 +166,40 @@ def trained(world, preprocessed):
     out["generator"] = world["root"] / "generator.ckpt"
     assert jax_cli("export", "spec-to-wav", out["spec-to-wav"], out["generator"]).exit_code == 0
     return out
+
+
+@pytest.fixture(scope="module")
+def st2_world(world):
+    """Two more wizard projects over the corpus (``st2jax``, ``st2port``)
+    whose text-to-wav config takes out-of-domain text from a plain-text
+    file and from the validation split, each preprocessed by its package's
+    ``preprocess text-to-wav`` (the default steps, ood included)."""
+    from everyvoice_tpu_torch.onchip import TEXTS
+    from everyvoice_tpu_torch.utils import write_config_file
+
+    root = world["root"]
+    (root / "ood.txt").write_text("\n".join(TEXTS) + "\n", encoding="utf8")
+    configs, printed = {}, {}
+    for name in ("st2jax", "st2port"):
+        write_config_package(wizard_state(root, name, world["rows"], world["wavs"]), "yaml")
+        path = root / name / "config" / "everyvoice-text-to-wav.yaml"
+        data = load_config_file(path)
+        data["training"]["ood_raw_data"] = {"default": {"local_path": str(root / "ood.txt")}}
+        data["training"]["use_validation_as_ood"] = True
+        write_config_file(path, data)
+        configs[name] = path
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(world["cwd"])
+        result = jax_cli("preprocess", "text-to-wav", configs["st2jax"])
+        assert result.exit_code == 0, result.output
+        printed["jax"] = result.output
+        mp.setenv("EVERYVOICE_DEVICE", "cpu")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["preprocess", "text-to-wav", str(configs["st2port"])]) == 0
+        printed["port"] = out.getvalue()
+    return {"configs": configs, "printed": printed,
+            "preprocessed": {k: root / f"st2{k}" / "preprocessed" for k in ("jax", "port")}}
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +337,96 @@ def test_trained_checkpoints_carry_the_jax_config(world, trained, monkeypatch, k
     header = jax_header(trained[kind])
     assert header["hyper_parameters"]["config"] == want
     assert header["global_step"] == 2
+
+
+def test_preprocess_text_to_wav_writes_what_the_jax_cli_writes(st2_world):
+    """The same artifacts and split as text-to-spec's, and the ood step's
+    ``ood/default.psv``: the text file's long sentences, then the
+    validation split's texts (all shorter than ``OOD_min_length``, kept)."""
+    jax_dir, port_dir = st2_world["preprocessed"]["jax"], st2_world["preprocessed"]["port"]
+
+    def names(root):
+        return sorted(p.relative_to(root) for p in root.rglob("*")
+                      if p.is_file() and p.suffix in (".psv", ".npy", ".wav"))
+
+    assert names(port_dir) == names(jax_dir)
+    for name in ("filelist.psv", "training_filelist.psv", "validation_filelist.psv",
+                 "ood/default.psv"):
+        assert (port_dir / name).read_bytes() == (jax_dir / name).read_bytes(), name
+    assert len((port_dir / "ood" / "default.psv").read_text().splitlines()) > 2
+    for printed in st2_world["printed"].values():
+        assert "Wrote OOD text for languages: default" in printed
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one thread beside the other test workers: StyleTTS2's
+    512-channel decoder on every core of a shared machine oversubscribes
+    it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_train_text_to_wav_both_stages_on_the_cpu(world, st2_world, monkeypatch, caplog,
+                                                  tmp_path, one_torch_thread):
+    """``train text-to-wav --mode first`` then ``--mode second`` with ``-a
+    cpu``: the JAX trainer's run layout (the logger's directory, hparams,
+    metrics, events and its ``stage-N-last.ckpt``), the JAX config and the
+    stage in the headers, and stage 2 starting from stage 1's checkpoint."""
+    from types import SimpleNamespace
+
+    import jax
+    import yaml
+
+    from everyvoice_tpu.models.styletts2.train import StyleTTS2Trainer as JaxTrainer
+    from everyvoice_tpu.parallel import make_mesh
+    from everyvoice_tpu.text import TextProcessor as JaxTextProcessor
+    from everyvoice_tpu.train.checkpoint import load_checkpoint_header as jax_header
+
+    monkeypatch.chdir(world["cwd"])
+    monkeypatch.delenv("EVERYVOICE_DEVICE", raising=False)
+    caplog.set_level("INFO", logger="everyvoice_tpu_torch.models.styletts2.train")
+    path = st2_world["configs"]["st2port"]
+    config = jax_load_config("text-to-wav", path, TINY["text-to-wav"])
+    lc = config.training.logger
+    version_dir = Path(lc.save_dir) / lc.name / lc.version
+    runs = {}
+    for n, mode in enumerate(("first", "second"), start=1):
+        assert cli.main(["train", "text-to-wav", str(path), "--mode", mode, "-a", "cpu",
+                         *overrides("text-to-wav")]) == 0
+        [ckpt] = version_dir.glob(f"*/checkpoints/stage-{n}-last.ckpt")
+        runs[mode] = ckpt.parents[1]
+    assert f"Loaded stage-1 checkpoint from {runs['first'] / 'checkpoints'}" in caplog.text
+    tp = JaxTextProcessor(config.text)
+    data = SimpleNamespace(text_processor=tp, n_symbols=len(tp.symbols))
+    for mode, run in runs.items():
+        jt = JaxTrainer(config, data, data, lang2id={"default": 0},
+                        mesh=make_mesh(jax.devices("cpu")[:1]), run_dir=tmp_path / mode,
+                        mode=mode, compute_dtype="float32")
+        assert sorted(p.name for p in (run / "checkpoints").iterdir()) == [
+            jt.last_checkpoint_name]
+        assert {"hparams.yaml", "metrics.jsonl"} <= {p.name for p in run.iterdir()}
+        assert list(run.glob("events.out.tfevents.*"))
+        assert (yaml.safe_load((run / "hparams.yaml").read_text())
+                == yaml.safe_load((jt.run_dir / "hparams.yaml").read_text()))
+        header = jax_header(run / "checkpoints" / jt.last_checkpoint_name)
+        assert header["hyper_parameters"]["config"] == config.model_checkpoint_dump()
+        assert header["stage"] == mode and header["global_step"] == 2
+
+
+def test_preprocess_refuses_a_huggingface_ood_source(st2_world, port_cli, tmp_path):
+    """A HuggingFace OOD source needs the network: the ood step exits 1
+    saying so, and names the local file to give instead."""
+    from everyvoice_tpu_torch.utils import write_config_file
+
+    data = load_config_file(st2_world["configs"]["st2port"])
+    data["training"]["ood_raw_data"] = {"fra": {"hf": {"repo_id": "someone/ood-text"}}}
+    path = st2_world["configs"]["st2port"].with_name("hf-ood.yaml")
+    write_config_file(path, data)
+    rc, _, err = port_cli("preprocess", "text-to-wav", path, "-s", "ood")
+    assert rc == 1 and "network" in err and "ood_raw_data.fra.local_path" in err
 
 
 def test_check_data_matches(world, trained, port_cli, tmp_path, monkeypatch):
@@ -486,7 +623,7 @@ def test_help_loads_no_torch_and_lists_the_pipeline_first(tmp_path):
                      "export", "g2p"]
 
 
-@pytest.mark.parametrize("verb", ["preprocess", "train", "synthesize from-text",
+@pytest.mark.parametrize("verb", ["preprocess", "train", "train text-to-wav", "synthesize from-text",
                                   "synthesize from-spec", "check data", "evaluate"])
 def test_computing_verbs_need_the_card_or_the_cpu_switch(world, trained, port_cli,
                                                          monkeypatch, verb):
@@ -497,6 +634,7 @@ def test_computing_verbs_need_the_card_or_the_cpu_switch(world, trained, port_cl
     args = {
         "preprocess": ["preprocess", "text-to-spec", config],
         "train": ["train", "text-to-spec", config],
+        "train text-to-wav": ["train", "text-to-wav", config_path(world, "json", "text-to-wav")],
         "synthesize from-text": ["synthesize", "from-text", trained["text-to-spec"], "-t", "hi",
                                  "-O", "spec"],
         "synthesize from-spec": ["synthesize", "from-spec", trained["generator"],
@@ -510,9 +648,13 @@ def test_computing_verbs_need_the_card_or_the_cpu_switch(world, trained, port_cl
 
 def test_unported_flags_name_their_roadmap_item(world, port_cli, tmp_path):
     fs2 = config_path(world, "json", "text-to-spec")
+    st2 = config_path(world, "json", "text-to-wav")
+    weights = tmp_path / "bst.t7"
+    weights.write_bytes(b"weights")
     cases = [
         (["preprocess", "text-to-spec", fs2, "--device-audio"], "The rest"),
-        (["preprocess", "text-to-spec", fs2, "-s", "ood"], "StyleTTS2 training"),
+        (["train", "text-to-wav", st2, "-c", f"pretrained.f0.local_path={weights}"],
+         "StyleTTS2's pretrained components"),
         (["train", "text-to-spec", fs2, "-s", "fsdp"], "Parallelism"),
         (["train", "text-to-spec", fs2, "-d", "2"], "Parallelism"),
         (["train", "text-to-spec", fs2, "-n", "2"], "Parallelism"),
@@ -522,5 +664,5 @@ def test_unported_flags_name_their_roadmap_item(world, port_cli, tmp_path):
         assert rc == 1 and f"ROADMAP.md, queue 1, '{item}'" in err, (args, err)
     assert port_cli("train", "text-to-spec", fs2, "-a", "tpu")[0] == 1
     with pytest.raises(SystemExit) as usage:
-        cli.main(["train", "text-to-wav", str(fs2)])
+        cli.main(["train", "text-to-wav", str(st2), "--mode", "third"])
     assert usage.value.code == 2

@@ -1,8 +1,8 @@
 """Tests that need a CUDA card: the port's hand-written kernels against their
 plain PyTorch versions, the wrappers' refusals, one FastSpeech2 training
 step and one HiFiGAN GAN step in bfloat16 and in float32, the vocoder's
-re-fold after an optimizer step, a ResBlock2 generator and a StyleTTS2
-synthesis. Without a card they skip.
+re-fold after an optimizer step, a ResBlock2 generator, a StyleTTS2
+synthesis and a StyleTTS2 training step. Without a card they skip.
 
 This file imports nothing of JAX, so it also runs on a machine that has no
 JAX, without the repository's conftest (which imports it):
@@ -361,3 +361,96 @@ def test_styletts2_synthesis_on_the_card(card, tmp_path):
     assert np.abs(out["cuda", "float32"] - want).max() <= 1e-3 * np.abs(want).max()
     assert np.isfinite(out["cuda", "bfloat16"]).all()
     assert out["cuda", "bfloat16"].shape == want.shape
+
+
+def _st2_batch(device, b=2, n_text=12, frames=64, hop=256, seed=0):
+    """A StyleTTS2 training batch of seeded values, as ``StyleTTS2Dataset``
+    lays one out (uniform durations and their token means)."""
+    gen = torch.Generator().manual_seed(seed)
+    text_lengths = torch.tensor([n_text, n_text - 4])
+    mel_lengths = torch.tensor([frames, frames - 13])
+    text = torch.randint(2, 28, (b, n_text), generator=gen)
+    text[torch.arange(n_text)[None] >= text_lengths[:, None]] = 0
+    valid = torch.arange(frames)[None] < mel_lengths[:, None]
+    f0 = torch.where(valid, 80 + 170 * torch.rand(b, frames, generator=gen), 0.0)
+    energy = torch.where(valid, torch.randn(b, frames, generator=gen), 0.0)
+    durations = torch.zeros(b, n_text, dtype=torch.int32)
+    for i in range(b):
+        n, t = int(text_lengths[i]), int(mel_lengths[i])
+        durations[i, :n] = t // n
+        durations[i, n - 1] += t - int(durations[i, :n].sum())
+    cum = torch.cumsum(durations.long(), 1)
+    starts = cum - durations.long()
+    f0_tok = torch.stack([torch.stack([f0[i, s:e].mean() if e > s else torch.tensor(0.0)
+                                       for s, e in zip(starts[i], cum[i])]) for i in range(b)])
+    energy_tok = torch.stack([torch.stack([energy[i, s:e].mean() if e > s else torch.tensor(0.0)
+                                           for s, e in zip(starts[i], cum[i])]) for i in range(b)])
+    t = torch.arange(frames * hop) / 22050
+    audio = 0.5 * torch.sin(2 * np.pi * torch.tensor([[140.0], [210.0]]) * t)
+    audio = audio + 0.05 * torch.randn(b, frames * hop, generator=gen)
+    audio = torch.where(torch.arange(frames * hop)[None] < mel_lengths[:, None] * hop, audio, 0.0)
+    batch = {"text": text, "text_lengths": text_lengths.int(), "mel_lengths": mel_lengths.int(),
+             "mel": torch.where(valid[..., None], torch.randn(b, frames, 80, generator=gen) - 4, 0.0),
+             "f0_frames": f0, "energy_frames": energy, "f0_tokens": f0_tok,
+             "energy_tokens": energy_tok, "durations": durations, "audio": audio}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_styletts2_training_step_on_the_card(card, tmp_path, compute_dtype):
+    """One StyleTTS2 step of a small model on the card: in float32 (stage 1
+    before the TMA, whose targets need no Viterbi path, dropout off) its
+    losses and both gradient norms within 1e-3 relative of the CPU's from
+    the same parameters and draws; in bfloat16 a stage-2 step (TMA and
+    diffusion on) with finite losses that moves the parameters."""
+    from everyvoice_tpu_torch.config import styletts2_config
+    from everyvoice_tpu_torch.models.layers import Dropout
+    from everyvoice_tpu_torch.models.styletts2.train import StyleTTS2Trainer
+    from everyvoice_tpu_torch.text import TextProcessor
+
+    raw = {"contact": {"contact_name": "Card", "contact_email": "card@example.org"},
+           "model": {"hidden_dim": 32, "style_dim": 16, "max_dur": 20,
+                     "decoder": {"mpd_layers": [2], "msd_layers": 1},
+                     "diffusion": {"transformer": {"num_layers": 1, "num_heads": 2,
+                                                   "head_features": 8}}},
+           "training": {"max_len": 64, "decoder_segment_frames": 16,
+                        "losses": {"tma_epoch": 1, "diff_epoch": 1},
+                        "logger": {"save_dir": str(tmp_path), "name": "card"}},
+           "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}
+    config = styletts2_config(raw)
+
+    class Data:
+        text_processor = TextProcessor(config["text"])
+        n_symbols = len(text_processor.symbols)
+        items: list = []
+
+    def trainer(device, mode):
+        t = StyleTTS2Trainer(config, Data(), Data(), {"default": 0}, run_dir=tmp_path / device,
+                             mode=mode, compute_dtype=compute_dtype, device=device)
+        t.init_params(seed=0)
+        t.gen_opt_state = t.gen_opt.init(t.gen_params)
+        t.disc_opt_state = t.disc_opt.init(t.disc_params)
+        return t
+
+    if compute_dtype == "bfloat16":
+        t = trainer("cuda", "second")
+        before = t.model.text_encoder.embed.weight.detach().clone()
+        losses = t.train_step(_st2_batch("cuda"), epoch=1)
+        assert {"gen/diff", "gen/sty", "gen/s2s", "gen/mono"} <= set(losses)
+        assert all(torch.isfinite(v) for v in losses.values())
+        assert not torch.equal(before, t.model.text_encoder.embed.weight)
+        return
+    result, draws = {}, None
+    for device in ("cuda", "cpu"):
+        t = trainer(device, "first")
+        for module in t.model.modules():
+            if isinstance(module, Dropout):
+                module.p = 0.0
+        batch = _st2_batch(device)
+        if draws is None:
+            draws = t.draw_step(_st2_batch("cpu"), torch.Generator().manual_seed(4))
+        losses = t.train_step(batch, draws.to(device), epoch=0)
+        result[device] = {**{k: v.item() for k, v in losses.items()},
+                          "grad_norm": t.grad_norm.item(), "disc_grad_norm": t.disc_grad_norm.item()}
+    for key, want in result["cpu"].items():
+        assert abs(result["cuda"][key] - want) <= 1e-3 * max(abs(want), 1e-12), key

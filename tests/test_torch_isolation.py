@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``everyvoice_tpu_torch``,
 running a small CPU synthesis that writes every output format, a small CPU
 preprocess of an English corpus through G2P and phonological features, two
-CPU training steps on its artifacts and a small CPU StyleTTS2 synthesis
-loads nothing of JAX, flax, pydantic, regex, msgpack, PyYAML, PIL or
+CPU training steps on its artifacts, a small CPU StyleTTS2 synthesis and a
+StyleTTS2 training step on the same artifacts loads nothing of JAX, flax, pydantic, regex, msgpack, PyYAML, PIL or
 ``everyvoice_tpu``. This file's
 process has imported JAX already (tests/conftest.py), so the check runs in
 a fresh interpreter."""
@@ -99,10 +99,23 @@ with tempfile.TemporaryDirectory() as tmp:
                         {"generator": torch_to_flax(st2.state_dict(), st2)})
     model, config, tp, _ = load_styletts2_model(s, device="cpu")
     st2_samples = len(synthesize_text(model, config, tp, "Hello world."))
+
+    from everyvoice_tpu_torch.train.text_to_wav import train_text_to_wav
+    torch.set_num_threads(1)  # beside the other test workers
+    st2_trainer = train_text_to_wav({
+        **st2_raw,
+        "model": {**st2_raw["model"], "decoder": {"mpd_layers": [2], "msd_layers": 1}},
+        "preprocessing": {"save_dir": str(tmp / "pre")},
+        "training": {"batch_size": 1, "max_steps": 1, "max_len": 16, "epochs_1st": 1,
+                     "training_filelist": str(tmp / "pre" / "training_filelist.psv"),
+                     "validation_filelist": str(tmp / "pre" / "validation_filelist.psv"),
+                     "logger": {"save_dir": str(tmp / "logs"), "name": "st2"}},
+    }, mode="first", device="cpu")
+    st2_ckpts = sorted(p.name for p in st2_trainer.ckpt_dir.iterdir())
 roots = sorted({name.split(".")[0] for name in sys.modules})
 print(json.dumps({"roots": roots, "written": len(written), "specs": specs, "pfs": pfs,
                   "samples": [len(r["wav"]) for r in results], "steps": steps,
-                  "ckpts": ckpts, "st2_samples": st2_samples}))
+                  "ckpts": ckpts, "st2_samples": st2_samples, "st2_ckpts": st2_ckpts}))
 """
 
 
@@ -119,6 +132,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert all(n > 0 for n in report["samples"])
     assert report["steps"] == 2 and "last.ckpt" in report["ckpts"]
     assert 0 < report["st2_samples"] <= 16 * 256 and report["st2_samples"] % 256 == 0
+    assert "stage-1-last.ckpt" in report["st2_ckpts"]
     loaded = set(report["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
@@ -135,11 +149,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     from everyvoice_tpu_torch.models.styletts2.synthesize import load_styletts2_model
     from everyvoice_tpu_torch.preprocessor import Preprocessor
     from everyvoice_tpu_torch.train.loop import FastSpeech2Trainer
+    from everyvoice_tpu_torch.models.styletts2.train import StyleTTS2Trainer
     from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec
+    from everyvoice_tpu_torch.train.text_to_wav import train_text_to_wav
 
     missing = tmp_path / "never-read.ckpt"  # the device is resolved first
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_text_to_spec({"training": {"training_filelist": str(missing)}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_text_to_wav({"training": {"training_filelist": str(missing)}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StyleTTS2Trainer({"training": {}}, None, None, run_dir=tmp_path / "never-run")
     run_dir = tmp_path / "never-run"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FastSpeech2Trainer({"training": {}}, None, None, {}, {}, run_dir=run_dir)

@@ -304,18 +304,26 @@ def test_eng_pfs_are_bit_equal(eng_runs):
 
 @pytest.mark.parametrize("call", ["device_audio", "pfs", "ood", "g2p", "arpabet"])
 def test_later_slices_raise(runs, eng_runs, tmp_path, call):
-    """What a later slice brings raises (the device audio path and
-    ``preprocess_ood``); the text options this slice ported give the JAX
-    package's ``process_text`` result: phonological features, G2P from
-    characters, and ARPABET converted to IPA phones."""
-    if call in ("device_audio", "ood"):
+    """What a later slice brings raises (the device audio path);
+    ``preprocess_ood``, which the StyleTTS2 training slice brought, writes
+    the files the JAX package's writes; the text options this slice ported
+    give the JAX package's ``process_text`` result: phonological features,
+    G2P from characters, and ARPABET converted to IPA phones."""
+    if call == "device_audio":
         port = Preprocessor(_raw_config(runs["root"], runs["filelist"], tmp_path / "out"),
                             device="cpu")
         with pytest.raises(NotImplementedError):
-            if call == "device_audio":
-                port.preprocess(to_process=STEPS, device_audio=True)
-            else:
-                port.preprocess_ood({"eng": ["hello"]})
+            port.preprocess(to_process=STEPS, device_audio=True)
+        return
+    if call == "ood":
+        texts = {"eng": ["Hello there.", "  ", "A pipe | and a back\\slash."], "fra": ["Bonjour."]}
+        Preprocessor(_raw_config(runs["root"], runs["filelist"], tmp_path / "out"),
+                     device="cpu").preprocess_ood(texts)
+        JaxPreprocessor(FastSpeech2Config(**_raw_config(
+            runs["root"], runs["filelist"], tmp_path / "jax"))).preprocess_ood(texts)
+        for lang in texts:
+            got = (tmp_path / "out" / "ood" / f"{lang}.psv").read_bytes()
+            assert got == (tmp_path / "jax" / "ood" / f"{lang}.psv").read_bytes()
         return
     item = {"basename": "x", "label": LABEL,
             "characters": "The quick brown fox, near my house!", "language": "eng"}
