@@ -114,7 +114,23 @@ Phases, any failure of which exits nonzero:
     it); a step split by CUDA events and torch.profiler; and the trained
     checkpoint served through ``synthesize text-to-wav`` with no device
     given, then its 1- and 16-text requests;
-13. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+13. StyleTTS2 training with its pretrained components at full width:
+    seeded files in the published formats and geometries (the JDC pitch
+    network, the ASR aligner, the multilingual PL-BERT, WavLM base plus,
+    written by ``onchip.write_pretrained_components``), a 24-utterance
+    project with out-of-domain text, and through ``cli.main`` with the
+    ``-c`` overrides ``fetch-pretrained`` would print: ``preprocess
+    text-to-wav`` (every feature batch's log-mel held to the plain
+    version), both stages (2 epochs each; the ASR aligner's targets from
+    epoch 0, the diffusion and the out-of-domain SLM terms from epoch 1 of
+    stage 2) and a 2-step resume; the grafted weights, the JDC's F0
+    targets, the regime-2 losses, the frozen WavLM and JDC, the groups'
+    learning rates on the first Adam step, the checkpoints' geometries and
+    ``multi_transform`` states, bf16 WavLM features against float32, a
+    float32 stage-2 step on the card against the CPU's, a step split
+    (the ASR decoder loop, WavLM and the out-of-domain decode apart) and
+    traced, and the trained checkpoint served;
+14. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -2089,18 +2105,47 @@ ST2_UTTERANCES = 24    # 21 for training (10 steps of 2 an epoch), 3 for validat
 ST2_EPOCHS = 2         # each stage; the TMA (stage 1) and the diffusion (stage 2) from epoch 1
 ST2_RESUME_STEPS = 2
 ST2_F32_SEGMENT = 64   # decoder frames of the float32 card-vs-CPU step (320 in training)
-ST2_GEN_KEYS = {"s2s", "mono", "mel", "ce", "dur", "f0", "norm", "gen", "fm", "total"}
+ST2_GEN_KEYS = {"disc/total"} | {f"gen/{k}" for k in ("s2s", "mono", "mel", "ce", "dur", "f0",
+                                                       "norm", "gen", "fm", "total")}
 
 
-def check_st2_run(trainer, stage_ckpt: str, expect_keys: set) -> list:
+def check_multi_transform(opt: dict, tree: dict, step: int) -> bool:
+    """Whether ``opt`` is ``optax.multi_transform``'s state over ``tree``
+    (adamws of the ``base``, ``bert`` and ``ft`` groups), each group's
+    count ``step`` and its moments in the tree's shapes on its own modules
+    (PL-BERT ``bert``, the ASR aligner ``ft``), ``{}`` on the others'."""
+    groups = {"plbert_encoder": "bert", "text_aligner": "ft"}
+    inner = opt.get("inner_states", {})
+    if sorted(inner) != ["base", "bert", "ft"]:
+        return False
+    for group, state in inner.items():
+        adam = state["inner_state"]["0"]
+        if sorted(state["inner_state"]) != ["0", "1", "2"] or int(adam["count"]) != step:
+            return False
+        for moment in ("mu", "nu"):
+            for module, sub in tree["params"].items():
+                mine = groups.get(module, "base") == group
+                got = adam[moment]["params"].get(module)  # a masked leaf is {}: no shape
+                if got is None or flat_shapes(got) != (flat_shapes(sub) if mine else {}):
+                    return False
+    return True
+
+
+def check_st2_run(trainer, stage_ckpt: str, expect_keys: set, components=None,
+                  later_keys: set = frozenset()) -> list:
     """A StyleTTS2 stage's run: metrics (finite losses, every key, one
-    validation an epoch), hparams, events, and its checkpoints (the stage
-    tag, no pretrained components, both optimizer states in the optax
-    layout with the step's count). Returns the training records."""
+    validation an epoch; ``later_keys``, the out-of-domain SLM terms, in the
+    last record and not the first), hparams, events, and its checkpoints
+    (the stage tag, the pretrained components' geometries, both optimizer
+    states in the optax layout with the step's count: ``multi_transform``'s
+    for the generator with PL-BERT or the ASR aligner). ``expect_keys`` are
+    the training record's keys past ``training/``. Returns the training
+    records."""
     import numpy as np
 
     from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
 
+    components = components or {"plbert": None, "asr": None}
     run = trainer.run_dir
     for name in ("metrics.jsonl", "hparams.yaml"):
         if not (run / name).is_file():
@@ -2110,8 +2155,14 @@ def check_st2_run(trainer, stage_ckpt: str, expect_keys: set) -> list:
     records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     train = [r for r in records if "training/gen/total" in r]
     val = [r for r in records if "validation/total" in r]
-    keys = {"training/disc/total"} | {f"training/gen/{k}" for k in expect_keys}
-    if not train or any(set(k for k in r if k.startswith("training/")) != keys for r in train):
+    keys = {f"training/{k}" for k in expect_keys}
+    later = {f"training/{k}" for k in later_keys}
+
+    def logged(r):
+        return set(k for k in r if k.startswith("training/"))
+
+    if (not train or any(logged(r) - later != keys for r in train)
+            or (later and (logged(train[-1]) & later != later or logged(train[0]) & later))):
         fail(f"StyleTTS2 training records lack keys: {[sorted(r) for r in train]}")
     if not all(np.isfinite(v) for r in records for k, v in r.items() if "/" in k):
         fail(f"StyleTTS2 losses are not finite: {records}")
@@ -2124,12 +2175,16 @@ def check_st2_run(trainer, stage_ckpt: str, expect_keys: set) -> list:
         ckpt = load_checkpoint(path)
         opt = ckpt["optimizer_states"]
         if (ckpt.get("stage") != trainer.mode
-                or ckpt.get("pretrained_components") != {"plbert": None, "asr": None}
+                or ckpt.get("pretrained_components") != components
                 or sorted(ckpt["state_dict"]) != ["discriminators", "generator"]
                 or sorted(opt) != ["disc", "gen"]):
             fail(f"{path.name}: header or trees not the JAX package's")
         for net in ("gen", "disc"):
             tree = ckpt["state_dict"]["generator" if net == "gen" else "discriminators"]
+            if net == "gen" and (components["plbert"] or components["asr"]):
+                if not check_multi_transform(opt[net], tree, ckpt["global_step"]):
+                    fail(f"{path.name}: the gen optimizer state is not optax.multi_transform's")
+                continue
             adam = opt[net]["0"]
             if (sorted(opt[net]) != ["0", "1", "2"] or int(adam["count"]) != ckpt["global_step"]
                     or flat_shapes(adam["mu"]) != flat_shapes(tree)
@@ -2142,27 +2197,34 @@ def split_st2_step(trainer, batch) -> dict:
     """CUDA-event times of one bf16 StyleTTS2 step on a training batch:
     the alignment targets, the discriminators' pass and update, the
     generator's pass (aligner, decode, losses, backward) and update, and,
-    on the decoder's output shape, its iSTFT head alone; then the step
-    traced by torch.profiler (launches, device busy time, wall) and its
-    peak memory."""
+    on the decoder's output shape, its iSTFT head alone; with the
+    pretrained components, the generator pass's pieces alone too (``pieces
+    _ms``): the ASR aligner's pass (its decoder loop) with the s2s loss's
+    backward, WavLM's forward and backward on the decoded clip, and the
+    out-of-domain decode with its backward; then the step traced by
+    torch.profiler (launches, device busy time, wall) and its peak
+    memory."""
     import torch
 
+    from everyvoice_tpu_torch.models.styletts2.loss import asr_s2s_loss
+    from everyvoice_tpu_torch.models.layers import lengths_to_mask
     from everyvoice_tpu_torch.utils.precision import no_tf32
 
     trainer.train_step(batch)  # warm
     draws = trainer.draw_step(batch)
     epoch = trainer.epoch
-    tma, (_, diff_on, _) = trainer.tma_active(epoch), trainer.phase_weights(epoch)
+    tma, ood = trainer.tma_active(epoch), trainer.ood_active(epoch)
+    _, diff_on, joint_on = trainer.phase_weights(epoch)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
     with no_tf32():
         events[0].record()
         targets = trainer.alignment_targets(batch, tma)
         targets["segment_starts"] = draws.segment_starts
         events[1].record()
-        _, d_grads = trainer.discriminator_grads(batch, targets, draws.disc_noise)
+        _, d_grads = trainer.discriminator_grads(batch, targets, draws, joint_on, ood)
         trainer.disc_opt.step(trainer.disc_params, d_grads, trainer.disc_opt_state)
         events[2].record()
-        _, g_grads = trainer.generator_grads(batch, targets, draws, diff_on, tma)
+        _, g_grads = trainer.generator_grads(batch, targets, draws, diff_on, tma, joint_on, ood)
         events[3].record()
         trainer.gen_opt.step(trainer.gen_params, g_grads, trainer.gen_opt_state)
         events[4].record()
@@ -2173,11 +2235,38 @@ def split_st2_step(trainer, batch) -> dict:
         with torch.no_grad():
             trainer.model.decoder.head(x, seg * trainer.model.hop)
         events[6].record()
+    pieces = {}
+
+    def piece(name, fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with no_tf32():
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        pieces[name] = start.elapsed_time(end)
+
+    if trainer.asr_geometry is not None:
+        def asr_pass():
+            _, _, aux = trainer.model.align_text_mel(
+                batch["text"], batch["text_lengths"], batch["mel"], batch["mel_lengths"],
+                asr_draws=(draws.asr_unk, draws.asr_keep))
+            mask = lengths_to_mask(batch["text_lengths"], batch["text"].shape[1])
+            asr_s2s_loss(aux["s2s_logits"], batch["text"], mask).backward()
+        piece("asr_aligner_fwd_bwd_ms", asr_pass)
+    if trainer.wavlm is not None:
+        wav = draws.gen_noise.mul(0.1).requires_grad_(True)
+        piece("wavlm_fwd_bwd_ms", lambda: trainer.slm_features(wav).square().mean().backward())
+    if trainer.ood_bank is not None:
+        piece("ood_decode_fwd_bwd_ms", lambda: trainer.synthesize_ood(
+            batch, draws.ood_index_gen, draws.ood_noise_gen).square().mean().backward())
+    trainer.model.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     traced = trace(lambda: trainer.train_step(batch))
     parts = ("alignment_targets_ms", "disc_pass_and_update_ms", "gen_pass_ms", "gen_update_ms")
     out = {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(parts)}
+    out["pieces_ms"] = pieces
     out.update({"istft_head_ms": events[5].elapsed_time(events[6]),"kernels_per_step": traced["kernels"], "traced_step_ms": traced["wall_ms"],
                 "traced_busy_ms": traced["busy_ms"],
                 "idle_share": (None if traced["busy_ms"] is None
@@ -2186,10 +2275,13 @@ def split_st2_step(trainer, batch) -> dict:
     return out
 
 
-def st2_float32_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> dict:
+def st2_float32_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path,
+                            what: str = "styletts2 train", seed: int | None = None) -> dict:
     """One float32 stage-2 step (TMA and diffusion on, dropout off) from the
-    stage-2 checkpoint's parameters, on one batch of 2 rows, on the card and
-    on the CPU, with the same draws (made on the CPU) and decoder clips of
+    stage-2 checkpoint's parameters (or, given ``seed``, from the trainer's
+    seeded initial parameters with the staged components grafted), on one
+    batch of 2 rows, on the card and on the CPU, with the same draws (made
+    on the CPU) and decoder clips of
     ``ST2_F32_SEGMENT`` frames so that the CPU's side is short: every loss
     and both gradient norms within 1e-3 relative. A step searches two
     Viterbi paths (the targets' and the binarization loss's); the CPU takes
@@ -2234,7 +2326,10 @@ def st2_float32_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> di
         for module in trainer.model.modules():
             if isinstance(module, Dropout):
                 module.p = 0.0
-        trainer.load_params(ckpt["state_dict"])
+        if seed is None:
+            trainer.load_params(ckpt["state_dict"])
+        else:
+            trainer.init_params(seed)
         trainer.gen_opt_state = trainer.gen_opt.init(trainer.gen_params)
         trainer.disc_opt_state = trainer.disc_opt.init(trainer.disc_params)
         batch = to_device(host, trainer.device)
@@ -2253,7 +2348,7 @@ def st2_float32_card_vs_cpu(config: dict, ckpt_path: Path, run_root: Path) -> di
     diffs = {k: abs(result["cuda"][k] - v) / max(abs(v), 1e-12) for k, v in result["cpu"].items()}
     row = {"rows": 2, "segment_frames": ST2_F32_SEGMENT, "card": result["cuda"],
            "cpu": result["cpu"], "alignments": ties, "max_rel_diff": max(diffs.values())}
-    print("styletts2 train float32 card vs cpu " + json.dumps(row), flush=True)
+    print(f"{what} float32 card vs cpu " + json.dumps(row), flush=True)
     if len(ties) != 2:
         fail(f"the stage-2 step searched {len(ties)} Viterbi paths, not 2")
     for tie in ties:
@@ -2381,7 +2476,7 @@ def st2_training_phase(root: Path, card: str) -> dict:
     if any(t.compute_dtype != "bfloat16" or t.device.type != "cuda" for t in trainers):
         fail(f"StyleTTS2 trained in {[(t.compute_dtype, str(t.device)) for t in trainers]}")
     records1 = check_st2_run(stage1, "stage-1-last.ckpt", ST2_GEN_KEYS)
-    records2 = check_st2_run(stage2, "stage-2-last.ckpt", ST2_GEN_KEYS | {"diff", "sty"})
+    records2 = check_st2_run(stage2, "stage-2-last.ckpt", ST2_GEN_KEYS | {"gen/diff", "gen/sty"})
     if records1[0]["training/gen/s2s"] != 0.0 or records1[-1]["training/gen/s2s"] == 0.0:
         fail(f"stage 1's TMA did not come in at epoch 1: {records1}")
     stage1_ckpt = stage1.ckpt_dir / "stage-1-last.ckpt"
@@ -2439,6 +2534,281 @@ def st2_training_phase(root: Path, card: str) -> dict:
     print("styletts2 train " + json.dumps(row), flush=True)
     return {"mel_launches": mel_launches, "fft_launches": fft_launches,
             "mrf_launches": st2_mrf_launches, "served_mel": served_mel, "f32": f32,
+            "split": split, "served": served, "row": row}
+
+
+ST2P_SEED = 13         # the seeded pretrained components' generator
+ST2P_LATER_KEYS = {"gen/slm_ood", "disc/slm_ood"}  # from joint_epoch (1) on
+# bf16 WavLM features against float32 on the same wavs: relative RMS of
+# the stacked hidden states. Two full-width runs on an H100 read 0.01098;
+# the bound is about three times that.
+SLM_BF16_REL_RMS = 0.03
+
+
+def st2_pretrained_phase(root: Path, card: str) -> dict:
+    """StyleTTS2 training with its pretrained components at full width
+    (phase 13): seeded components in their published formats and
+    geometries (``onchip.write_pretrained_components``: the JDC, the ASR
+    aligner, the multilingual PL-BERT, WavLM base plus) and a 24-utterance
+    project with out-of-domain text, then through ``cli.main`` from
+    another working directory, every train verb given the ``-c`` overrides
+    that point at the components: ``preprocess text-to-wav`` (the ood step
+    included; every feature batch's log-mel held to the plain version),
+    ``train text-to-wav --mode first`` then ``--mode second`` (2 epochs
+    each: the ASR aligner's targets from epoch 0, its s2s loss from the TMA
+    epoch 1 of stage 1; the diffusion and the out-of-domain SLM terms from
+    epoch 1 of stage 2), a 2-step resume. Checked: the grafted weights are
+    the files'; the JDC's F0 targets are finite and not the
+    preprocessor's; the regime-2 losses are finite; WavLM (both copies)
+    and the JDC are bit-unchanged, and stage 2's first Adam step moved
+    PL-BERT, the aligner and the rest by their own learning rates; the
+    checkpoints' geometries and ``multi_transform`` states; a float32
+    stage-2 step on the card against the CPU's; bf16 WavLM features against
+    float32; a step split and traced; the trained checkpoint served."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch import cli
+    from everyvoice_tpu_torch.config import PRETRAINED_SYMBOL_TABLE
+    from everyvoice_tpu_torch.config_files import load_config_from_path
+    from everyvoice_tpu_torch.dataloader.prefetch import to_device
+    from everyvoice_tpu_torch.dsp.resample import resample
+    from everyvoice_tpu_torch.models.styletts2 import synthesize as st2
+    from everyvoice_tpu_torch.models.styletts2 import train as st2_train
+    from everyvoice_tpu_torch.models.styletts2.slm import (
+        load_wavlm_params,
+        stack_hidden_states,
+        wavlm_from_flax,
+    )
+    from everyvoice_tpu_torch.onchip import REQUESTS, TEXTS, write_styletts2_pretrained_project
+    from everyvoice_tpu_torch.ops.mel import log_mel
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    work = root / "st2-pretrained"
+    walls: dict = {}
+    t0 = time.perf_counter()
+    cfg_path, overrides, paths = write_styletts2_pretrained_project(
+        work, ST2_UTTERANCES, torch.Generator().manual_seed(ST2P_SEED), seed=15,
+        epochs_1st=ST2_EPOCHS, epochs_2nd=ST2_EPOCHS,
+        losses={"tma_epoch": 1, "diff_epoch": 1, "joint_epoch": 1})
+    walls["write components and project"] = time.perf_counter() - t0
+    staged = [x for o in overrides for x in ("-c", o)]
+
+    def run(name: str, *args) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main([str(a) for a in args])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{name}: exit code {rc}")
+
+    trainers, step_s, preprocessors = [], [], []
+    first: dict = {}  # per trainer: what its first step started from, and moved
+    Trainer = st2_train.StyleTTS2Trainer
+    plain = {"fit": Trainer.fit, "train_step": Trainer.train_step,
+             "preprocess": Preprocessor.preprocess}
+
+    def recording_fit(self, *args, **kwargs):
+        trainers.append(self)
+        return plain["fit"](self, *args, **kwargs)
+
+    def timed_step(self, *args, **kwargs):
+        record = self not in first
+        if record:
+            m = self.model
+            symbols = self.dataset.text_processor.symbols
+            first[self] = {
+                "plbert_row": m.plbert_encoder.word_embeddings.detach()[symbols.index("a")]
+                .cpu().clone(),
+                "asr_conv": m.text_aligner.init_cnn.weight.detach().cpu().clone(),
+                "jdc": {n: p.detach().clone() for n, p in self.jdc.state_dict().items()},
+                "wavlm": None if self.wavlm is None else {
+                    n: p.detach().clone() for n, p in self.wavlm.state_dict().items()},
+                "before": {n: p.detach().clone() for n, p in self.gen_params.items()},
+            }
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain["train_step"](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_s.append((self.mode, time.perf_counter() - t0))
+        if record:
+            before = first[self].pop("before")
+            moved = {}
+            for n, p in self.gen_params.items():
+                group = self.gen_opt.group_of(n)
+                delta = (p.detach() - before[n]).abs().max().item()
+                moved[group] = max(moved.get(group, 0.0), delta)
+            first[self]["moved"] = moved
+        return out
+
+    def recording_preprocess(self, *args, **kwargs):
+        preprocessors.append(self)
+        return plain["preprocess"](self, *args, **kwargs)
+
+    cwd = Path.cwd()
+    (work / "elsewhere").mkdir()
+    os.chdir(work / "elsewhere")
+    Trainer.fit, Trainer.train_step = recording_fit, timed_step
+    Preprocessor.preprocess = recording_preprocess
+    log_mel.launches = 0
+    log_mel.fft_launches = 0
+    mrf_stage.launches = 0
+    try:
+        run("preprocess text-to-wav", "preprocess", "text-to-wav", cfg_path)
+        mel_launches, fft_launches = log_mel.launches, log_mel.fft_launches
+        run("train text-to-wav --mode first", "train", "text-to-wav", cfg_path, "--mode",
+            "first", *staged)
+        run("train text-to-wav --mode second", "train", "text-to-wav", cfg_path, "--mode",
+            "second", *staged)
+        stage1, stage2 = trainers
+        resumed_from = stage2.ckpt_dir / "stage-2-last.ckpt"
+        run("resume", "train", "text-to-wav", cfg_path, "--mode", "second", *staged,
+            "-c", f"training.finetune_checkpoint={resumed_from}",
+            "-c", f"training.epochs_2nd={ST2_EPOCHS + 1}",
+            "-c", f"training.max_steps={stage2.global_step + ST2_RESUME_STEPS}")
+    finally:
+        Trainer.fit, Trainer.train_step = plain["fit"], plain["train_step"]
+        Preprocessor.preprocess = plain["preprocess"]
+        os.chdir(cwd)
+    mrf_launches = mrf_stage.launches
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    resumed = trainers[2]
+
+    pre = preprocessors[0]
+    if mel_launches == 0 or fft_launches != len(pre.last_batch_shapes):
+        fail(f"preprocess text-to-wav: {mel_launches} log_mel launches, {fft_launches} FFT "
+             f"launches, {len(pre.last_batch_shapes)} feature batches")
+    served_mel, _ = check_served_features(pre)
+
+    # the runs, their components and their checkpoints
+    if (stage1.mode, stage2.mode, resumed.mode) != ("first", "second", "second"):
+        fail("the three runs were not stage 1, stage 2 and its resume")
+    if any(t.compute_dtype != "bfloat16" or t.device.type != "cuda" for t in trainers):
+        fail(f"StyleTTS2 trained in {[(t.compute_dtype, str(t.device)) for t in trainers]}")
+    if (stage1.wavlm is not None or stage2.wavlm is None or stage2.ood_bank is None
+            or any(t.jdc is None or t.plbert_geometry is None or t.asr_geometry is None
+                   for t in trainers)):
+        fail("the stages did not load the components the config stages")
+    components = {"plbert": stage1.plbert_geometry, "asr": stage1.asr_geometry}
+    if components["plbert"]["hidden_size"] != 768 or components["asr"]["hidden_dim"] != 256:
+        fail(f"the components are not at their published geometry: {components}")
+    records1 = check_st2_run(stage1, "stage-1-last.ckpt", ST2_GEN_KEYS, components)
+    records2 = check_st2_run(
+        stage2, "stage-2-last.ckpt",
+        ST2_GEN_KEYS | {"gen/diff", "gen/sty", "gen/slm", "disc/slm"}, components,
+        later_keys=ST2P_LATER_KEYS)
+    if records1[0]["training/gen/s2s"] != 0.0 or records1[-1]["training/gen/s2s"] == 0.0:
+        fail(f"stage 1's s2s loss did not come in at epoch 1: {records1}")
+    final = load_checkpoint(resumed.ckpt_dir / "stage-2-last.ckpt")
+    if not check_multi_transform(final["optimizer_states"]["gen"],
+                                 final["state_dict"]["generator"], resumed.global_step):
+        fail("the resumed run's optimizer counts do not continue the checkpoint's")
+
+    # grafted weights, frozen networks and the first step's rates
+    files = {"plbert": torch.load(paths["plbert"], weights_only=False)["net"],
+             "asr": torch.load(paths["asr"], weights_only=False)["model"],
+             "jdc": torch.load(paths["f0"], weights_only=False)["net"]}
+    start = first[stage1]
+    grafted = {
+        "plbert": torch.equal(start["plbert_row"], files["plbert"][
+            "module.encoder.embeddings.word_embeddings.weight"][PRETRAINED_SYMBOL_TABLE.index("a")]),
+        "asr": torch.equal(start["asr_conv"], files["asr"]["init_cnn.conv.weight"]),
+        "jdc": torch.equal(start["jdc"]["stem_conv1.weight"].cpu(),
+                           files["jdc"]["conv_block.0.weight"])}
+    if not all(grafted.values()):
+        fail(f"stage 1 did not start from the staged weights (equal: {grafted})")
+    for trainer in trainers[:2]:
+        if any(not torch.equal(p, first[trainer]["jdc"][n])
+               for n, p in trainer.jdc.state_dict().items()):
+            fail(f"stage {trainer.mode}'s JDC changed in training")
+    saved = first[stage2]["wavlm"]
+    if any(not torch.equal(p, saved[n]) for n, p in stage2.wavlm.state_dict().items()):
+        fail("WavLM changed in training")
+    opt = stage2.training_config["optimizer"]
+    rates = {"base": opt["lr"], "bert": opt["bert_lr"], "ft": opt["ft_lr"]}
+    moved = first[stage2]["moved"]
+    ratios = {g: moved[g] / rates[g] for g in rates}
+    if any(not 0.9 <= r <= 1.1 for r in ratios.values()):
+        fail(f"stage 2's first Adam step moved the groups by {moved}, not their rates {rates}")
+
+    # the JDC's F0 targets, bf16 WavLM features, float32 card vs CPU, the split
+    batch = next(stage2.dataset.batches(2, shuffle=True, seed=0, drop_last=True))
+    batch.pop("basenames")
+    batch = to_device(batch, stage2.device)
+    with torch.no_grad():
+        f0 = stage2.target_f0_frames(batch)
+        frames = torch.arange(f0.shape[1], device=f0.device) < batch["mel_lengths"][:, None]
+        f0_gap = (f0 - batch["f0_frames"])[frames].abs().max().item()
+        audio = batch["audio"][:, : ST2_F32_SEGMENT * stage2.model.hop * 5]
+        a = stage2.config["preprocessing"]["audio"]
+        wav16 = resample(audio, a["output_sampling_rate"], stage2.config["model"]["slm"]["sr"])
+        wavlm32 = wavlm_from_flax(*load_wavlm_params(paths["wavlm"])).to(stage2.device)
+        feats32 = stack_hidden_states(wavlm32(wav16))
+        del wavlm32
+        feats16 = stage2.slm_features(audio)
+        rel_rms = ((feats16 - feats32).norm() / feats32.norm()).item()
+    if not bool(torch.isfinite(f0).all()) or f0_gap < 1.0:
+        fail(f"the JDC's F0 targets are not finite or equal the preprocessor's (gap {f0_gap})")
+    if not rel_rms < SLM_BF16_REL_RMS:
+        fail(f"bf16 WavLM features: relative RMS {rel_rms} against float32")
+    config = load_config_from_path("text-to-wav", cfg_path, overrides)
+    t0 = time.perf_counter()
+    # From seeded parameters: a trained state's conditioning varies from run
+    # to run, and with it the float32 gap (PERF.md, PR 10).
+    f32 = st2_float32_card_vs_cpu(config, stage2.ckpt_dir / "stage-2-last.ckpt", work,
+                                  "styletts2 pretrained", seed=ST2P_SEED)
+    walls["float32 card vs cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = split_st2_step(stage2, batch)
+    walls["split"] = time.perf_counter() - t0
+    split["card"] = card
+    print("styletts2 pretrained split " + json.dumps(split), flush=True)
+
+    ckpt = stage2.ckpt_dir / "stage-2-last.ckpt"
+    env = os.environ.pop("EVERYVOICE_DEVICE", None)
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["synthesize", "text-to-wav", str(ckpt), "-t", TEXTS[0],
+                           "-o", str(work / "served")])
+    finally:
+        if env is not None:
+            os.environ["EVERYVOICE_DEVICE"] = env
+    if rc != 0 or len(list((work / "served" / "wav").glob("*.wav"))) != 1:
+        fail(f"synthesize text-to-wav from the regime-2 checkpoint: exit {rc}\n"
+             f"{err.getvalue()[-2000:]}")
+    model, st2_config, tp, _ = st2.load_styletts2_model(ckpt)
+    if model.asr_geometry != components["asr"] or model.plbert_geometry != components["plbert"]:
+        fail("serving did not rebuild the checkpoint's components")
+    served = serve_st2(model, st2_config, tp, card, "regime 2", (REQUESTS[0],))
+    del model
+
+    steps = {mode: sorted(s for m, s in step_s if m == mode) for mode in ("first", "second")}
+    row = {"utterances": ST2_UTTERANCES, "walls_s": walls,
+           "steps": {"first": stage1.global_step, "second": stage2.global_step,
+                     "resumed": resumed.global_step},
+           "median_step_ms": {m: 1e3 * s[len(s) // 2] for m, s in steps.items() if s},
+           "first_adam_step_over_lr": ratios, "jdc_f0_gap_hz": f0_gap,
+           "slm_bf16_rel_rms": rel_rms,
+           "losses": {k: records2[-1][f"training/{k}"] for k in
+                      ("gen/s2s", "gen/mono", "gen/slm", "gen/slm_ood", "disc/slm",
+                       "disc/slm_ood")},
+           "log_mel_launches": mel_launches, "fft_launches": fft_launches,
+           "mrf_launches": mrf_launches, "training_peak_gib": train_peak_gib,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    print("styletts2 pretrained " + json.dumps(row), flush=True)
+    if not all(np.isfinite(v) for v in row["losses"].values()):
+        fail(f"regime-2 losses are not finite: {row['losses']}")
+    return {"mel_launches": mel_launches, "fft_launches": fft_launches,
+            "mrf_launches": mrf_launches, "served_mel": served_mel, "f32": f32,
             "split": split, "served": served, "row": row}
 
 
@@ -2506,6 +2876,7 @@ def main() -> int:
         cli_run = cli_phase(tmp, voc_path, card)
         styletts2_phase(tmp, card)
         st2_trained = st2_training_phase(tmp, card)
+        st2_pretrained = st2_pretrained_phase(tmp, card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -2523,6 +2894,7 @@ def main() -> int:
         "phone_voice_launches": phone["mrf_launches"],
         "cli_launches": cli_run["mrf_launches"],
         "styletts2_training_launches": st2_trained["mrf_launches"],
+        "styletts2_pretrained_launches": st2_pretrained["mrf_launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + training_stages
@@ -2539,15 +2911,17 @@ def main() -> int:
         "source": "everyvoice_tpu_torch/ops/csrc/mel.cu",
         "replaces": "everyvoice_tpu/ops/mel_pallas.py:67",
         "launches": (prep["launches"] + phone["mel_launches"] + cli_run["mel_launches"]
-                     + st2_trained["mel_launches"]),
+                     + st2_trained["mel_launches"] + st2_pretrained["mel_launches"]),
         "fft_launches": (prep["fft_launches"] + phone["mel_launches"] + cli_run["mel_launches"]
-                         + st2_trained["fft_launches"]),
+                         + st2_trained["fft_launches"] + st2_pretrained["fft_launches"]),
         "phone_voice_launches": phone["mel_launches"],
         "cli_launches": cli_run["mel_launches"],
         "styletts2_training_launches": st2_trained["mel_launches"],
+        "styletts2_pretrained_launches": st2_pretrained["mel_launches"],
         "design": "shared-memory radix-2 Stockham FFT (n_fft a power of two)",
         "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel + phone["served_mel"]
-                           + cli_run["served_mel"] + st2_trained["served_mel"]),
+                           + cli_run["served_mel"] + st2_trained["served_mel"]
+                           + st2_pretrained["served_mel"]),
         "ms": sum(r["kernel_ms"] for r in mel_rows),
         "plain_ms": sum(r["plain_ms"] for r in mel_rows),
         "bound_ms": sum(r["bound_ms"] for r in mel_rows),

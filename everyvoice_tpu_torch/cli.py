@@ -34,7 +34,7 @@ OUTPUT_TYPES = ("wav", "spec", "textgrid", "readalong-xml", "readalong-html")
 STEPS = ("audio", "text", "pfs", "spec", "attn", "energy", "pitch", "ood")
 ROADMAP_ITEMS = {
     "device_audio": "queue 1, 'The rest' (the preprocessor's device audio path)",
-    "styletts2": "queue 1, 'StyleTTS2's pretrained components'",
+    "fetch_pretrained": "queue 1, 'fetch-pretrained'",
     "parallelism": "queue 1, 'Parallelism'",
 }
 
@@ -212,14 +212,8 @@ def train(args) -> int:
     elif kind == "spec-to-wav":
         from everyvoice_tpu_torch.train.spec_to_wav import train_spec_to_wav as fit
     else:
-        from everyvoice_tpu_torch.models.styletts2.train import pretrained_files
         from everyvoice_tpu_torch.train.text_to_wav import train_text_to_wav as fit
 
-        found = pretrained_files(config, args.mode)
-        if found:
-            raise not_ported("StyleTTS2 training with pretrained components ("
-                             + ", ".join(f"{what} = {path}" for what, path in found) + ")",
-                             "styletts2")
         options["mode"] = args.mode
     trainer = fit(config, gradient_clip_val=args.gradient_clip_val,
                   profile_steps=args.profile_steps,
@@ -433,6 +427,35 @@ def check_text_config(args) -> int:
     return 1
 
 
+def check_pretrained_symbols(args) -> int:
+    """Compare the config's symbols with the frozen pretrained symbol table
+    and suggest substitutions for the missing ones (exit 1 when any is
+    missing), as the JAX CLI's ``check pretrained-symbols``."""
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.text.utils_heavy import suggest_symbol_mapping
+
+    config = _load_config("text-to-wav", args.config_path, ())
+    pretrained = list(config["pretrained"]["pretrained_symbols"] or ())
+    if not pretrained:
+        raise CLIError("No pretrained_symbols declared in the config's pretrained section.")
+    user_symbols = sorted(s for s in TextProcessor(config["text"]).declared_symbols
+                          if not (s.startswith("<") and s.endswith(">")))
+    table = set(pretrained)
+    missing = [s for s in user_symbols if s not in table]
+    if not missing:
+        print("All your symbols exist in the pretrained symbol table.")
+        return 0
+    print(f"{len(missing)} symbol(s) are not in the pretrained table.")
+    print("Suggested substitutions (add as to_replace rules):")
+    for user_symbol, replacement in sorted(suggest_symbol_mapping(user_symbols, pretrained).items()):
+        print(f"  {user_symbol!r} -> {replacement!r}")
+    return 1
+
+
+def fetch_pretrained(args) -> int:
+    raise not_ported("fetch-pretrained (it downloads from HuggingFace)", "fetch_pretrained")
+
+
 def check_data(args) -> int:
     from everyvoice_tpu_torch.train.check_data import check_data as score
 
@@ -624,6 +647,10 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("config_path", type=_existing)
     k.add_argument("-f", "--filelist", type=_existing, required=True)
     k.set_defaults(run=check_text_config)
+    k = kinds.add_parser("pretrained-symbols",
+                         help="Compare config symbols with the frozen pretrained symbol table.")
+    k.add_argument("config_path", type=_existing)
+    k.set_defaults(run=check_pretrained_symbols)
     k = kinds.add_parser("data", help="Score every item's losses with a trained model.")
     k.add_argument("config_path", type=_existing)
     k.add_argument("--model-path", type=_existing, required=True,
@@ -663,6 +690,13 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("model_path", type=_existing)
     k.add_argument("output_path", type=Path)
     k.set_defaults(run=export_spec_to_wav)
+
+    p = verbs.add_parser("fetch-pretrained",
+                         help="Download StyleTTS2's pretrained components (not ported).")
+    p.add_argument("model_kind", choices=("text-to-spec", "spec-to-wav", "text-to-wav"))
+    p.add_argument("--config-path", type=_existing, default=None)
+    p.add_argument("--output-dir", type=Path, default=None)
+    p.set_defaults(run=fetch_pretrained)
 
     p = verbs.add_parser("g2p", help="Convert text to phones with the G2P engine for LANG_ID.")
     p.add_argument("lang_id")

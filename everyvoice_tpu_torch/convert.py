@@ -38,13 +38,17 @@ moments, which have the parameters' shapes.
 
 StyleTTS2's generator stack (``models/styletts2``) maps to the JAX
 ``StyleTTS2Module``'s ``{"params": ...}``: text and context encoders (or
-PL-BERT and its projection), the TMA aligner, both style encoders, the
-prosody predictor, the AdaIN decoder, the denoiser and the projections. An
-``asr`` checkpoint's ``text_aligner`` subtree is not a torch parameter: the
-serving loader keeps it aside (``StyleTTS2.text_aligner_params``) and
-``torch_to_flax`` writes it back. The StyleTTS2 trainer's checkpoint tree
-is HiFiGAN's (``hifigan_tree``), its generator the StyleTTS2 stack; the
-optimizer moments map through the same tables.
+PL-BERT and its projection), the TMA aligner (or, with an ``asr`` geometry,
+the ASR aligner ``text_aligner``, whose decoder keeps flax's shapes), both
+style encoders, the prosody predictor, the AdaIN decoder, the denoiser and
+the projections. The StyleTTS2 trainer's checkpoint tree is HiFiGAN's
+(``hifigan_tree``), its generator the StyleTTS2 stack, plus the SLM head's
+``slm`` subtree beside ``mpd`` and ``msd`` when SLM-adversarial training is
+on; the optimizer moments map through the same tables. The frozen
+pretrained networks, which no checkpoint holds, map too: the JDC pitch
+network (its BiLSTM's one flax bias per direction is torch's input bias,
+the hidden bias zero) and WavLM, each from the flax tree its loader
+converts the published file into.
 
 HiFiGAN's generator maps to ``{"params": ...}`` (``ResBlock1_j`` or
 ``ResBlock2_j``; the post conv or the iSTFT head as ``Conv_1``), its
@@ -74,6 +78,8 @@ from everyvoice_tpu_torch.models.layers import (
     MultiHeadAttention,
     VariancePredictor,
 )
+from everyvoice_tpu_torch.models.styletts2.asr import ASRCNN
+from everyvoice_tpu_torch.models.styletts2.jdc import JDCNet
 from everyvoice_tpu_torch.models.styletts2.layers import (
     AdaIN1d,
     AdaINResBlock1,
@@ -85,8 +91,10 @@ from everyvoice_tpu_torch.models.styletts2.layers import (
 )
 from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
 from everyvoice_tpu_torch.models.styletts2.plbert import PLBERT
+from everyvoice_tpu_torch.models.styletts2.slm import SLMDiscriminator, WavLM
 
 OPTIONAL_SUBTREES = ("alignment", "gst")
+OPTIONAL_ROOTS = ("slm",)  # the SLM head of the discriminators, stage 2's alone
 LSTM_GATES = ("i", "f", "g", "o")  # nn.LSTM's packing order
 
 
@@ -392,6 +400,77 @@ def _plbert(fpath, t) -> list:
     return out
 
 
+ASR_S2S_PARAMS = ("embedding", "sos_embedding", "w_ih", "w_hh", "b_lstm", "query_kernel",
+                  "memory_kernel", "v_kernel", "loc_conv", "loc_dense", "proj_hidden_kernel",
+                  "proj_hidden_bias", "proj_symbols_kernel", "proj_symbols_bias")
+
+
+def _asr(fpath, t, asr: ASRCNN) -> list:
+    out = _conv(fpath + ("init_cnn",), f"{t}init_cnn")
+    for i in range(asr.n_layers):
+        f, b = fpath + (f"block{i}",), f"{t}block{i}"
+        for j in range(getattr(asr, f"block{i}").n_inner):
+            out += _conv(f + (f"dilated{j}",), f"{b}.dilated{j}")
+            out += _norm(f + (f"norm{j}",), f"{b}.norm{j}")
+            out += _conv(f + (f"pointwise{j}",), f"{b}.pointwise{j}")
+        out += _norm(f + ("out_norm",), f"{b}.out_norm")
+    out += _conv(fpath + ("projection",), f"{t}projection")
+    out += _dense(fpath + ("ctc_dense1",), f"{t}ctc_dense1")
+    out += _dense(fpath + ("ctc_dense2",), f"{t}ctc_dense2")
+    return out + [(fpath + ("s2s", name), f"{t}s2s.{name}", "plain") for name in ASR_S2S_PARAMS]
+
+
+def _wavlm(fpath, t, wavlm: WavLM) -> list:
+    out = [(fpath + (f"conv{i}", "kernel"), f"{t}conv{i}.weight", "conv")
+           for i in range(wavlm.n_convs)]
+    out += _norm(fpath + ("conv0_norm",), f"{t}conv0_norm")
+    out += _norm(fpath + ("fp_norm",), f"{t}fp_norm")
+    out += _dense(fpath + ("fp_proj",), f"{t}fp_proj")
+    out += _conv(fpath + ("pos_conv",), f"{t}pos_conv")
+    out += _norm(fpath + ("enc_norm",), f"{t}enc_norm")
+    out += [(fpath + ("rel_attn_embed",), f"{t}rel_attn_embed", "plain")]
+    for i in range(wavlm.num_layers):
+        f, layer = fpath + (f"layer{i}",), f"{t}layer{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "gru_rel_pos_linear"):
+            out += _dense(f + ("attention", name), f"{layer}.attention.{name}")
+        out += [(f + ("attention", "gru_rel_pos_const"), f"{layer}.attention.gru_rel_pos_const",
+                 "plain")]
+        out += _norm(f + ("layer_norm",), f"{layer}.layer_norm")
+        out += _dense(f + ("intermediate_dense",), f"{layer}.intermediate_dense")
+        out += _dense(f + ("output_dense",), f"{layer}.output_dense")
+        out += _norm(f + ("final_layer_norm",), f"{layer}.final_layer_norm")
+    return out
+
+
+def _slm_head(fpath, t) -> list:
+    return [row for name in ("pre", "conv0", "conv1", "post")
+            for row in _conv(fpath + (name,), f"{t}{name}")]
+
+
+def _jdc(fpath) -> list:
+    def conv(name, tkey):
+        return [(fpath + name + ("kernel",), f"{tkey}.weight", "conv2d")]
+
+    def bn(name, tkey):
+        return [(fpath + name + (leaf,), f"{tkey}.{leaf}", "plain")
+                for leaf in ("scale", "bias", "mean", "var")]
+
+    out = conv(("stem_conv1",), "stem_conv1") + bn(("stem_bn",), "stem_bn")
+    out += conv(("stem_conv2",), "stem_conv2")
+    for res in ("res1", "res2", "res3"):
+        out += bn((res, "pre_bn"), f"{res}.pre_bn") + conv((res, "conv1"), f"{res}.conv1")
+        out += bn((res, "mid_bn"), f"{res}.mid_bn") + conv((res, "conv2"), f"{res}.conv2")
+        out += conv((res, "shortcut"), f"{res}.shortcut")
+    out += bn(("pool_bn",), "pool_bn")
+    for way, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        lstm = fpath + ("bilstm",)
+        out += [(lstm + (f"w_ih_{way}",), f"bilstm.weight_ih_l0{suffix}", "dense"),
+                (lstm + (f"w_hh_{way}",), f"bilstm.weight_hh_l0{suffix}", "dense"),
+                (lstm + (f"b_{way}",), f"bilstm.bias_ih_l0{suffix}", "plain"),
+                (lstm, f"bilstm.bias_hh_l0{suffix}", "lstm_bias_ih")]
+    return out + _dense(fpath + ("classifier",), "classifier")
+
+
 def _st2_table(model: StyleTTS2) -> list:
     p = ("params",)
     out = _st2_text_encoder(p + ("text_encoder",), "text_encoder.", model.text_encoder)
@@ -404,6 +483,8 @@ def _st2_table(model: StyleTTS2) -> list:
     if model.asr_geometry is None:
         for i, name in enumerate(("key_in", "key_out", "query_in", "query_mid", "query_out")):
             out += _conv(p + ("tma_aligner", f"Conv_{i}"), f"tma_aligner.{name}")
+    else:
+        out += _asr(p + ("text_aligner",), "text_aligner.", model.text_aligner)
     for name in ("acoustic_style_encoder", "prosodic_style_encoder"):
         out += _st2_style_encoder(p + (name,), f"{name}.", getattr(model, name))
     out += _st2_predictor(p + ("predictor",), "predictor.")
@@ -440,6 +521,14 @@ def _table(model) -> list:
         return _st2_denoiser(p, "", model)
     if isinstance(model, PLBERT):
         return _plbert(p, "")
+    if isinstance(model, ASRCNN):
+        return _asr(p, "", model)
+    if isinstance(model, WavLM):
+        return _wavlm(p, "", model)
+    if isinstance(model, SLMDiscriminator):
+        return _slm_head(p, "")
+    if isinstance(model, JDCNet):
+        return _jdc(p)
     if isinstance(model, HiFiGANGenerator):
         return _generator_table(model)
     if isinstance(model, MultiPeriodDiscriminator):
@@ -447,8 +536,11 @@ def _table(model) -> list:
     if isinstance(model, MultiScaleDiscriminator):
         return _msd_table(model)
     if isinstance(model, HiFiGANDiscriminators):
-        return (_mpd_table(model.mpd, ("mpd", "params"), "mpd.")
-                + _msd_table(model.msd, ("msd", "params"), "msd."))
+        out = (_mpd_table(model.mpd, ("mpd", "params"), "mpd.")
+               + _msd_table(model.msd, ("msd", "params"), "msd."))
+        if hasattr(model, "slm"):
+            out += _slm_head(("slm", "params"), "slm.")
+        return out
     raise TypeError(f"no flax layout is known for {type(model).__name__}")
 
 
@@ -467,6 +559,7 @@ def flax_to_torch(params_tree: dict, model) -> tuple:
     all; their state_dict entries are the model's current values."""
     leaves = _flatten(params_tree)
     present = {p[:2] for p in leaves}
+    roots = {p[0] for p in leaves}
     current = model.state_dict()
     state, used, absent = {}, set(), []
     for fpath, tkey, kind in _table(model):
@@ -475,7 +568,8 @@ def flax_to_torch(params_tree: dict, model) -> tuple:
             state[tkey] = torch.zeros(current[tkey].shape)
             continue
         if any(p not in leaves for p in paths):
-            if fpath[1] in OPTIONAL_SUBTREES and fpath[:2] not in present:
+            if ((fpath[1] in OPTIONAL_SUBTREES and fpath[:2] not in present)
+                    or (fpath[0] in OPTIONAL_ROOTS and fpath[0] not in roots)):
                 state[tkey] = current[tkey].detach().cpu().clone()
                 absent += ["/".join(p) for p in paths]
                 continue
@@ -532,8 +626,6 @@ def torch_to_flax(state_dict: dict, model) -> dict:
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = np.ascontiguousarray(part)
-    if getattr(model, "text_aligner_params", None) is not None:
-        tree["params"]["text_aligner"] = model.text_aligner_params
     return tree
 
 

@@ -5,12 +5,12 @@ inference methods, and ``sample_style_diffusion``).
 The module holds every submodule a checkpoint of the JAX package holds, so
 its parameters load and write back unchanged: the text encoder; PL-BERT and
 its projection when the checkpoint records a ``plbert`` geometry, else the
-conv-and-BiLSTM context encoder standing in for it; the TMA aligner (the
-FastSpeech2 alignment encoder) unless the checkpoint records an ``asr``
-geometry, whose ``text_aligner`` subtree the loader keeps aside as numpy
-for the training slice; both style encoders; the prosody predictor; the
-decoder; the denoiser; ``frame_proj`` and ``f0_embed``; and the language
-embedding of a multilingual model.
+conv-and-BiLSTM context encoder standing in for it; the TMA aligner: the
+pretrained ASR aligner (``asr.py``'s ``ASRCNN``, as ``text_aligner``) where
+the checkpoint records an ``asr`` geometry, else the FastSpeech2 alignment
+encoder; both style encoders; the prosody predictor; the decoder; the
+denoiser; ``frame_proj`` and ``f0_embed``; and the language embedding of a
+multilingual model.
 
 As in the JAX package, ``from_config`` gives the decoder none of the
 config's ``upsample_initial_channel``, ``resblock_kernel_sizes`` or
@@ -18,11 +18,14 @@ config's ``upsample_initial_channel``, ``resblock_kernel_sizes`` or
 3/7/11 and dilations 1/3/5, the shape every checkpoint has.
 
 ``forward`` is the training forward (the JAX module's ``__call__`` with
-teacher durations and F0): the TMA attention over the reference mel, the
-prosody prediction, frames regulated to ``max_frames``, and the decode of
-one clip of ``segment_frames`` an utterance where the caller gives the
-clips' starts. ``align_text_mel`` is the aligner alone. Dropout acts in
-training mode; the caller draws the decoder's source noise.
+teacher durations and F0, or the predicted ones where none are given):
+the TMA attention over the reference mel, the prosody prediction, frames
+regulated to ``max_frames``, and the decode of one clip of
+``segment_frames`` an utterance where the caller gives the clips' starts.
+``align_text_mel`` is the aligner alone; with the ASR aligner it also
+returns the decoder's logits, for the seq2seq loss. Dropout acts in
+training mode; the caller draws the decoder's source noise and the ASR
+decoder's masks.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from torch import nn
 
 from everyvoice_tpu_torch.models.fs2.alignment import AlignmentEncoder
 from everyvoice_tpu_torch.models.layers import lengths_to_mask, regulate_length
+from everyvoice_tpu_torch.models.styletts2.asr import ASRCNN, asr_attention_to_tma
+from everyvoice_tpu_torch.models.styletts2.jdc import REFERENCE_MEL_MEAN, REFERENCE_MEL_STD
 from everyvoice_tpu_torch.models.styletts2.layers import (
     DiffusionDenoiser,
     ProsodyPredictor,
@@ -80,8 +85,6 @@ class StyleTTS2(nn.Module):
         self.hop = hop
         self.plbert_geometry = dict(plbert_geometry) if plbert_geometry else None
         self.asr_geometry = dict(asr_geometry) if asr_geometry else None
-        # The ``text_aligner`` subtree of an ``asr`` checkpoint, as loaded.
-        self.text_aligner_params = None
         self.text_encoder = TextEncoder(n_symbols, hidden_dim)
         if self.plbert_geometry is not None:
             self.plbert_encoder = PLBERT(**self.plbert_geometry)
@@ -91,6 +94,8 @@ class StyleTTS2(nn.Module):
         if self.asr_geometry is None:
             self.tma_aligner = AlignmentEncoder(dim=hidden_dim // 2, n_mels=n_mels,
                                                 text_dim=hidden_dim)
+        else:
+            self.text_aligner = ASRCNN(**self.asr_geometry)
         self.acoustic_style_encoder = StyleEncoder(style_dim, dtype=dt)
         self.prosodic_style_encoder = StyleEncoder(style_dim, dtype=dt)
         self.predictor = ProsodyPredictor(style_dim, hidden_dim, max_dur)
@@ -189,33 +194,54 @@ class StyleTTS2(nn.Module):
         return self.decoder(frames, f0_frames, acoustic_style, noise)
 
     # -- training ----------------------------------------------------------
-    def align_text_mel(self, tokens, text_lengths, mel, mel_lengths, language_id=None):
+    def align_text_mel(self, tokens, text_lengths, mel, mel_lengths, language_id=None,
+                       asr_draws=None):
         """The TMA attention between the text and the mel: (attn_soft,
-        attn_logprob), each (B, T_mel, N_text). A model with the pretrained
-        ASR aligner (an ``asr`` geometry) has no TMA aligner: training it
-        waits for ``ROADMAP.md``'s item for the pretrained components."""
+        attn_logprob, aux), the first two (B, T_mel, N_text). With the ASR
+        aligner, on the mel renormalised as the JDC's input is, aux holds
+        its decoder's ``s2s_logits`` (B, N+1, n_token) and ``asr_draws``
+        are its training masks (None: deterministic); with the stand-in,
+        aux is empty."""
         mask = lengths_to_mask(text_lengths, tokens.shape[1])
         mel_mask = lengths_to_mask(mel_lengths, mel.shape[1])
-        return self.tma_aligner(self.encode_text(tokens, mask, language_id), mel, mask, mel_mask)
+        if self.asr_geometry is not None:
+            normalized = (mel - REFERENCE_MEL_MEAN) / REFERENCE_MEL_STD
+            _, s2s_logits, attn = self.text_aligner(normalized, mel_lengths, tokens, asr_draws)
+            soft, logprob = asr_attention_to_tma(attn, mel.shape[1], mask, mel_mask)
+            return soft, logprob, {"s2s_logits": s2s_logits}
+        soft, logprob = self.tma_aligner(self.encode_text(tokens, mask, language_id), mel, mask,
+                                         mel_mask)
+        return soft, logprob, {}
 
     def forward(self, tokens, text_lengths, ref_mel, mel_lengths, durations, f0_frames,
                 noise, segment_starts=None, language_id=None) -> dict:
-        """The training forward on teacher durations and F0: the text side
-        and the TMA attention over the reference mel at full length, then
-        the frames (and F0) regulated to ``max_frames`` and, where
-        ``segment_starts`` (B,) is given and the model has
-        ``segment_frames``, one clip an utterance decoded; the whole
-        ``max_frames`` otherwise. ``noise`` is the decoder source's standard
-        normal draw, (B, decoded frames · hop). The JAX module's energy
-        frames reach nothing the decoder reads, so there is no such
-        argument here."""
+        """The training forward: the text side and the TMA attention over
+        the reference mel at full length, then the frames (and F0)
+        regulated to ``max_frames`` and, where ``segment_starts`` (B,) is
+        given and the model has ``segment_frames``, one clip an utterance
+        decoded; the whole ``max_frames`` otherwise. ``durations`` and
+        ``f0_frames`` are the teacher's, or None for the predicted ones
+        (the argmax duration in [1, max_dur], the token F0 regulated), as
+        the out-of-domain decode of SLM training uses. ``noise`` is the
+        decoder source's standard normal draw, (B, decoded frames · hop).
+        The JAX module's energy frames reach nothing the decoder reads, so
+        there is no such argument here. With the ASR aligner, whose
+        attention this forward's callers never read (the trainer aligns
+        with ``align_text_mel``), no attention is computed and
+        ``attn_soft``/``attn_logprob`` are None."""
         mask = lengths_to_mask(text_lengths, tokens.shape[1])
         text_enc = self.encode_text(tokens, mask, language_id)
         acoustic_style, prosodic_style = self.extract_styles(ref_mel)
-        attn_soft, attn_logprob = self.tma_aligner(
-            text_enc, ref_mel, mask, lengths_to_mask(mel_lengths, ref_mel.shape[1]))
+        attn_soft = attn_logprob = None
+        if self.asr_geometry is None:
+            attn_soft, attn_logprob = self.tma_aligner(
+                text_enc, ref_mel, mask, lengths_to_mask(mel_lengths, ref_mel.shape[1]))
         dur_logits, f0_pred, energy_pred = self.predict_prosody(
             self.prosody_encoding(tokens, mask, text_enc), prosodic_style, mask)
+        if durations is None:
+            durations = torch.clamp(torch.argmax(dur_logits, dim=-1), 1, self.max_dur) * mask
+        if f0_frames is None:
+            f0_frames = regulate_length(f0_pred[..., None], durations, self.max_frames)[0][..., 0]
         frames, frame_mask, total = regulate_length(text_enc, durations, self.max_frames)
         frames = self.frame_proj(frames) + self.f0_embed(f0_frames[..., None])
         if segment_starts is not None and self.segment_frames is not None:

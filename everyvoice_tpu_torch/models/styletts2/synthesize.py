@@ -61,10 +61,7 @@ def load_styletts2_model(ckpt_path: Path | str, compute_dtype: str = "auto", dev
         compute_dtype=compute_dtype,
     )
     params = ckpt["state_dict"].get("generator", ckpt["state_dict"])
-    tree = dict(params["params"])
-    model.text_aligner_params = tree.pop("text_aligner", None)
-    state, _ = flax_to_torch({"params": tree}, model)
-    model.load_state_dict(state)
+    model.load_state_dict(flax_to_torch(params, model)[0])
     return model.to(device).eval(), config, text_processor, lang2id
 
 

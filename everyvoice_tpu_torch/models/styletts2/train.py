@@ -1,10 +1,22 @@
 """StyleTTS2's two-stage trainer on one device (counterpart of
-everyvoice_tpu/models/styletts2/train.py), for a project that trains with
-the in-framework stand-ins: the conv context encoder in place of PL-BERT,
-the FastSpeech2 alignment encoder as the TMA (text-mel) aligner, and the
-preprocessor's F0. The pretrained components and SLM-adversarial training
-are not ported yet: the trainer refuses a config whose pretrained files
-exist (``refuse_pretrained``).
+everyvoice_tpu/models/styletts2/train.py).
+
+Two regimes, chosen by what is on disk, as the JAX trainer chooses: with
+no pretrained file, the in-framework stand-ins (the conv context encoder
+in place of PL-BERT, the FastSpeech2 alignment encoder as the TMA
+(text-mel) aligner, and the preprocessor's F0); with the files that
+``pretrained.*`` names (``load_pretrained_components``), the published
+recipe's components: PL-BERT as the text-context encoder, fine-tuned at
+``bert_lr``; the ASR aligner as the TMA aligner, fine-tuned at ``ft_lr``,
+its attention the alignment from epoch 0 and its decoder's seq2seq loss
+the ``s2s`` term; and the frozen JDC network's F0 as the F0 targets. A
+configured path that does not exist warns and leaves the stand-in. In
+stage 2, where ``model.slm.model`` names a WavLM on disk, SLM-adversarial
+training joins: the frozen WavLM (in the step's compute dtype, its
+features float32) encodes the 16 kHz resampled wavs, a head in the
+discriminators' tree scores them, and from ``joint_epoch`` the generator
+also decodes out-of-domain texts (the preprocessor's ``ood/`` bank) for the
+SLM to judge.
 
 Stage 1 (``mode="first"``) trains the generator stack against the MPD and
 MSD: mel, duration (cross-entropy and L1), F0 and energy losses, the
@@ -21,12 +33,15 @@ before any update; the discriminators' loss and update on a decode of
 their own; then the generator's loss, on a second decode with its own
 noise and dropout, against the updated discriminators, and its update.
 Every random draw comes from a ``torch.Generator``: the clip starts, both
-decodes' source noise and the diffusion's σ and noise from one seeded like
+decodes' source noise, the diffusion's σ and noise, the ASR decoder's masks
+and the out-of-domain texts and their decodes' noise from one seeded like
 the JAX trainer's (17), the dropout masks from one seeded with the crc32
 of the logger name. ``draw_step`` makes a step's draws; a caller (a test)
 may hand ``train_step`` its own. Each network has its own ``optax.adamw``
 with optax's defaults (weight decay 1e-4), after a global-norm clip when
-``gradient_clip_val`` is given; checkpoints hold both optimizer states in
+``gradient_clip_val`` is given; with PL-BERT or the ASR aligner staged the
+generator's is ``optax.multi_transform`` over the ``base``, ``bert`` and
+``ft`` groups (``GroupedAdamW``). Checkpoints hold both optimizer states in
 the optax layout, so either package resumes the other's.
 """
 
@@ -41,12 +56,14 @@ from functools import partial
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from everyvoice_tpu_torch.convert import flax_to_torch, hifigan_tree, torch_to_flax
 from everyvoice_tpu_torch.dataloader.prefetch import prefetch, to_device
 from everyvoice_tpu_torch.device import resolve_device
+from everyvoice_tpu_torch.dsp.resample import resample
 from everyvoice_tpu_torch.dsp.spectral import dynamic_range_compression, get_spectral_transform
 from everyvoice_tpu_torch.models.fs2 import alignment
 from everyvoice_tpu_torch.models.hifigan.loss import (
@@ -56,8 +73,11 @@ from everyvoice_tpu_torch.models.hifigan.loss import (
 )
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANDiscriminators
 from everyvoice_tpu_torch.models.layers import Dropout, lengths_to_mask, set_dropout_generator
+from everyvoice_tpu_torch.models.styletts2.asr import dct_matrix, draw_asr_masks, load_asr_params
+from everyvoice_tpu_torch.models.styletts2.jdc import jdc_f0, load_jdc_params
 from everyvoice_tpu_torch.models.styletts2.layers import SIGMA_FREQS, AdaINResBlock1
 from everyvoice_tpu_torch.models.styletts2.loss import (
+    asr_s2s_loss,
     diffusion_edm_loss,
     duration_ce_loss,
     duration_l1_loss,
@@ -66,6 +86,15 @@ from everyvoice_tpu_torch.models.styletts2.loss import (
     style_reconstruction_loss,
 )
 from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
+from everyvoice_tpu_torch.models.styletts2.plbert import load_plbert_params
+from everyvoice_tpu_torch.models.styletts2.slm import (
+    SLMDiscriminator,
+    load_wavlm_params,
+    slm_discriminator_loss,
+    slm_generator_loss,
+    stack_hidden_states,
+    wavlm_from_flax,
+)
 from everyvoice_tpu_torch.parallel import pad_batch_for_eval
 from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
 from everyvoice_tpu_torch.train.loop import (
@@ -76,11 +105,11 @@ from everyvoice_tpu_torch.train.loop import (
     init_hifigan_parameters,
 )
 from everyvoice_tpu_torch.train.optim import build_optimizer
-from everyvoice_tpu_torch.utils.precision import no_tf32, resolve_compute_dtype
+from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+from everyvoice_tpu_torch.utils.precision import no_tf32, resolve_compute_dtype, torch_dtype
 
 logger = logging.getLogger(__name__)
 
-PRETRAINED_ITEM = "ROADMAP.md, queue 1, 'StyleTTS2's pretrained components'"
 STAGE_CHECKPOINTS = {"first": "stage-1-last.ckpt", "second": "stage-2-last.ckpt"}
 STEP_SEED = 17  # the JAX trainer's training_rng(17)
 VALIDATION_BATCHES = 8
@@ -94,38 +123,137 @@ def adamw_config(lr: float) -> dict:
             "weight_decay": 1e-4}
 
 
-def pretrained_files(config: dict, mode: str) -> list:
-    """(what, path) of each pretrained file the JAX trainer would load:
-    ``pretrained.*``'s paths that exist, and in stage 2 ``model.slm.model``
-    where it exists on disk. A configured path that does not exist is
-    skipped with a warning, as the JAX trainer uses the stand-in then."""
+# Generator parameter groups of the pretrained components (the flax tree's
+# top-level module names, which the JAX trainer labels): PL-BERT at
+# ``bert_lr``, the ASR aligner at ``ft_lr``, the rest ``base`` at ``lr``.
+PRETRAINED_GROUPS = {"plbert_encoder": "bert", "text_aligner": "ft"}
+OOD_BANK_SIZE = 512
+
+
+def _present(path, what: str) -> bool:
+    """Whether a configured pretrained path is on disk; a configured path
+    that is not warns, and the stand-in trains instead."""
+    if path is None:
+        return False
+    if Path(path).exists():
+        return True
+    logger.warning(f"pretrained.{what} is set to {path} but no such file exists — using the "
+                   "trainable in-framework stand-in. Stage it with `everyvoice-tpu "
+                   "fetch-pretrained text-to-wav` on a machine with network access.")
+    return False
+
+
+def _existing(path):
+    return path if path and Path(path).exists() else None
+
+
+def load_pretrained_components(config: dict, project_symbols) -> dict:
+    """The staged pretrained components of ``config["pretrained"]``:
+    ``plbert`` and ``asr`` as (geometry, flax tree) to graft into the
+    generator, their symbol tables remapped onto ``project_symbols`` from
+    ``pretrained_symbols``; ``jdc`` as the frozen ``JDCNet``. A component
+    whose path is unset or absent is None."""
     pre = config["pretrained"]
-    found = []
-    for what, path in (("pretrained.f0.local_path", pre["f0"]["local_path"]),
-                       ("pretrained.plbert.local_checkpoint", pre["plbert"]["local_checkpoint"]),
-                       ("pretrained.asr.local_checkpoint", pre["asr"]["local_checkpoint"])):
-        if path is None:
-            continue
-        if Path(path).exists():
-            found.append((what, path))
-        else:
-            logger.warning(f"{what} is set to {path} but no such file exists — using the "
-                           "trainable in-framework stand-in.")
-    slm = config["model"]["slm"]["model"]
-    if mode == "second" and Path(slm).exists():
-        found.append(("model.slm.model (SLM-adversarial training)", slm))
-    return found
+    symbols = list(pre["pretrained_symbols"])
+    out = {"plbert": None, "asr": None, "jdc": None}
+    if _present(pre["f0"]["local_path"], "f0.local_path"):
+        out["jdc"] = load_jdc_params(pre["f0"]["local_path"])[0]
+        logger.info(f"Loaded the pretrained JDC F0 network from {pre['f0']['local_path']} "
+                    "(frozen; the F0 targets come from it).")
+    plbert = pre["plbert"]
+    if _present(plbert["local_checkpoint"], "plbert.local_checkpoint"):
+        out["plbert"] = load_plbert_params(plbert["local_checkpoint"],
+                                           _existing(plbert["local_config"]),
+                                           list(project_symbols), symbols)
+        logger.info(f"Loaded pretrained PL-BERT from {plbert['local_checkpoint']} (fine-tuned "
+                    f"at bert_lr={config['training']['optimizer']['bert_lr']}).")
+    asr = pre["asr"]
+    if _present(asr["local_checkpoint"], "asr.local_checkpoint"):
+        out["asr"] = load_asr_params(asr["local_checkpoint"], _existing(asr["local_config"]),
+                                     list(project_symbols), symbols)
+        logger.info(f"Loaded the pretrained ASR aligner from {asr['local_checkpoint']} "
+                    f"(fine-tuned at ft_lr={config['training']['optimizer']['ft_lr']}).")
+    return out
 
 
-def refuse_pretrained(config: dict, mode: str) -> None:
-    """Raise where the config asks for a pretrained component: the port
-    never trains without one that the JAX trainer would load."""
-    found = pretrained_files(config, mode)
-    if found:
-        names = ", ".join(f"{what} = {path}" for what, path in found)
-        raise NotImplementedError(
-            f"StyleTTS2 training with pretrained components ({names}) is not ported yet; "
-            f"see {PRETRAINED_ITEM}. Unset them to train with the in-framework stand-ins.")
+class GroupedAdamW:
+    """``optax.multi_transform`` of ``optax.adamw``s over named parameter
+    groups (``rates``: group → learning rate), after one global-norm clip of
+    all the gradients when ``gradient_clip_val`` is given. A parameter's
+    group is its top module's in ``PRETRAINED_GROUPS``, else ``base``, for
+    the update and the checkpoint layout alike. Its state is
+    ``{group: Optimizer state}``; ``to_optax`` writes multi_transform's
+    layout, each group's moments over the whole tree with the other groups'
+    leaves masked (``{}``)."""
+
+    def __init__(self, rates: dict, gradient_clip_val=None):
+        self.groups = {g: build_optimizer(adamw_config(lr)) for g, lr in rates.items()}
+        self.clip = gradient_clip_val if gradient_clip_val and gradient_clip_val > 0 else None
+
+    def _split(self, named: dict) -> dict:
+        out = {g: {} for g in self.groups}
+        for n, v in named.items():
+            out[self.group_of(n)][n] = v
+        return out
+
+    def init(self, params: dict) -> dict:
+        return {g: self.groups[g].init(p) for g, p in self._split(params).items()}
+
+    @torch.no_grad()
+    def step(self, params: dict, grads: dict, state: dict) -> torch.Tensor:
+        g = {n: grads[n] if grads.get(n) is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+        norm = torch.sqrt(torch.stack(torch._foreach_norm(list(g.values()))).square().sum())
+        if self.clip is not None:
+            factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
+            g = dict(zip(g, torch._foreach_mul(list(g.values()), factor)))
+        split_grads = self._split(g)
+        for group, p in self._split(params).items():
+            if p:
+                self.groups[group].step(p, split_grads[group], state[group])
+            else:  # optax counts a group's updates whether or not it has leaves
+                state[group]["count"] += 1
+        return norm
+
+    @staticmethod
+    def group_of(name: str) -> str:
+        """The group of a parameter's dotted name or of a top module."""
+        return PRETRAINED_GROUPS.get(name.split(".")[0], "base")
+
+    def to_optax(self, state: dict, to_flax) -> dict:
+        """``to_flax`` maps a dict of named tensors (every parameter) to the
+        flax tree."""
+        def masked(tree, group):
+            def empty(node):
+                return {k: empty(v) for k, v in node.items()} if isinstance(node, dict) else {}
+            return {"params": {k: v if self.group_of(k) == group else empty(v)
+                               for k, v in tree["params"].items()}}
+
+        inner = {}
+        full = {n: torch.zeros_like(v) for s in state.values() for n, v in s["mu"].items()}
+        for group, opt in self.groups.items():
+            tree = opt.to_optax(
+                state[group], lambda named, f=full: to_flax({**f, **named}))
+            adam = tree["0"]
+            adam["mu"], adam["nu"] = masked(adam["mu"], group), masked(adam["nu"], group)
+            inner[group] = {"inner_state": tree}
+        tree = {"inner_states": inner}
+        return {"0": {}, "1": tree} if self.clip is not None else tree
+
+    def from_optax(self, tree: dict, from_flax) -> dict:
+        """Inverse of ``to_optax``; ``from_flax`` maps a whole flax tree to
+        the named tensors of every parameter."""
+        inner = (tree["1"] if self.clip is not None else tree)["inner_states"]
+        merged = {}
+        for moment in ("mu", "nu"):
+            params = {}
+            for module in inner["base"]["inner_state"]["0"][moment]["params"]:
+                group = self.group_of(module)
+                params[module] = inner[group]["inner_state"]["0"][moment]["params"][module]
+            merged[moment] = self._split(from_flax({"params": params}))
+        return {g: {"count": int(np.asarray(inner[g]["inner_state"]["0"]["count"])),
+                    "schedule_count": 0, "mu": merged["mu"][g], "nu": merged["nu"][g]}
+                for g in self.groups}
 
 
 @dataclass
@@ -133,7 +261,10 @@ class StepDraws:
     """A step's random draws: the clip start of each row (None when the
     whole ``max_len`` is decoded), each decode's (B, samples) source noise,
     and the diffusion's (B,) log-σ draw and (B, 2·style) noises, all
-    standard normal but the starts."""
+    standard normal but the starts. With the ASR aligner, its decoder's
+    masks for the generator's aligner pass (``asr.draw_asr_masks``); with
+    an out-of-domain bank, each loss's (B,) picks from it and its decode's
+    source noise."""
 
     segment_starts: Optional[torch.Tensor]
     disc_noise: torch.Tensor
@@ -141,6 +272,12 @@ class StepDraws:
     log_sigma: torch.Tensor
     diffusion_noise: torch.Tensor
     style_noise: torch.Tensor
+    asr_unk: Optional[torch.Tensor] = None
+    asr_keep: Optional[torch.Tensor] = None
+    ood_index_disc: Optional[torch.Tensor] = None
+    ood_index_gen: Optional[torch.Tensor] = None
+    ood_noise_disc: Optional[torch.Tensor] = None
+    ood_noise_gen: Optional[torch.Tensor] = None
 
     def to(self, device) -> "StepDraws":
         return StepDraws(**{f.name: None if getattr(self, f.name) is None
@@ -183,7 +320,7 @@ def init_styletts2_parameters(model: StyleTTS2, gen: torch.Generator) -> None:
             std = 1.0 / math.sqrt(m.weight[0].numel()) / LECUN_TRUNCATED_STD
             m.weight.copy_(_truncated_normal(m.weight.shape, std, gen))
             m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
@@ -205,7 +342,8 @@ class StyleTTS2Trainer(TrainerBase):
     (a ``StyleTTS2Dataset``), validating on ``val_dataset``, on ``device``
     (the CUDA card unless the caller names the CPU). The LSTMs' input
     biases stay zero (flax's LSTM cell has none), so they are not
-    trained."""
+    trained. ``jdc`` and ``wavlm`` are the frozen pretrained networks (None
+    when not staged); the SLM head is ``discriminators.slm``."""
 
     model_name = "StyleTTS2Module"
 
@@ -215,8 +353,7 @@ class StyleTTS2Trainer(TrainerBase):
                  device=None):
         if mode not in STAGE_CHECKPOINTS:
             raise ValueError(f"mode must be 'first' or 'second', not {mode!r}")
-        device = resolve_device(device)  # before the refusal and the run directory
-        refuse_pretrained(config, mode)
+        device = resolve_device(device)  # before the components and the run directory
         self.last_checkpoint_name = STAGE_CHECKPOINTS[mode]
         super().__init__(config, run_dir=run_dir, device=device)
         self.mode = mode
@@ -225,24 +362,53 @@ class StyleTTS2Trainer(TrainerBase):
         self.lang2id = lang2id or {}
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
         m = config["model"]
+        components = load_pretrained_components(config, dataset.text_processor.symbols)
+        self.plbert_geometry, self._plbert_pretrained = components["plbert"] or (None, None)
+        self.asr_geometry, self._asr_pretrained = components["asr"] or (None, None)
+        self.jdc = components["jdc"].to(self.device) if components["jdc"] is not None else None
+        # SLM-adversarial training: stage 2, with a WavLM on disk. The
+        # frozen WavLM runs in the compute dtype (its features float32).
+        self.wavlm = None
+        if mode == "second" and Path(m["slm"]["model"]).exists():
+            geometry, tree = load_wavlm_params(m["slm"]["model"])
+            self.wavlm = wavlm_from_flax(geometry, tree).to(
+                self.device, torch_dtype(self.compute_dtype))
+            logger.info(f"SLM-adversarial training enabled (WavLM from {m['slm']['model']})")
         with torch.device("meta"):  # no draw from the global RNG
             model = StyleTTS2.from_config(config, n_symbols=dataset.n_symbols,
                                           n_langs=max(len(self.lang2id), 1),
+                                          plbert_geometry=self.plbert_geometry,
+                                          asr_geometry=self.asr_geometry,
                                           compute_dtype=self.compute_dtype)
             discriminators = HiFiGANDiscriminators(tuple(m["decoder"]["mpd_layers"]),
                                                    m["decoder"]["msd_layers"], self.compute_dtype)
+            if self.wavlm is not None:
+                discriminators.slm = SLMDiscriminator(
+                    (self.wavlm.num_layers + 1) * self.wavlm.hidden_size,
+                    m["slm"]["initial_channel"])
         self.model = model.to_empty(device=self.device)
         self.discriminators = discriminators.to_empty(device=self.device)
         with torch.no_grad():  # a buffer, so to_empty left it unset
             self.model.denoiser.freqs.copy_(torch.from_numpy(SIGMA_FREQS))
+            if self.asr_geometry is not None:
+                self.model.text_aligner.dct.copy_(torch.from_numpy(
+                    dct_matrix(self.asr_geometry["input_dim"] // 2, self.asr_geometry["input_dim"])))
         for name, p in self.model.named_parameters():
             if name.endswith("bias_ih_l0"):
                 p.requires_grad_(False)
         self.gen_params = {n: p for n, p in self.model.named_parameters() if p.requires_grad}
         self.disc_params = dict(self.discriminators.named_parameters())
-        lr = self.training_config["optimizer"]["lr"]
-        self.gen_opt = build_optimizer(adamw_config(lr), gradient_clip_val=gradient_clip_val)
-        self.disc_opt = build_optimizer(adamw_config(lr), gradient_clip_val=gradient_clip_val)
+        opt = self.training_config["optimizer"]
+        if self.plbert_geometry is not None or self.asr_geometry is not None:
+            # the model has these modules only where their component is staged
+            self.gen_opt = GroupedAdamW({"base": opt["lr"], "bert": opt["bert_lr"],
+                                         "ft": opt["ft_lr"]}, gradient_clip_val)
+        else:
+            self.gen_opt = build_optimizer(adamw_config(opt["lr"]),
+                                           gradient_clip_val=gradient_clip_val)
+        self.disc_opt = build_optimizer(adamw_config(opt["lr"]),
+                                        gradient_clip_val=gradient_clip_val)
+        self.ood_bank = self.load_ood_bank() if self.wavlm is not None else None
         self.losses_cfg = self.training_config["losses"]
         a = config["preprocessing"]["audio"]
         self.mel_fn = get_spectral_transform(
@@ -264,8 +430,8 @@ class StyleTTS2Trainer(TrainerBase):
     def phase_weights(self, epoch: int) -> tuple:
         """(tma_on, diff_on, joint_on) for ``epoch``: stage 1 phases the
         TMA in at ``tma_epoch``; stage 2 keeps it on and phases the
-        diffusion in at ``diff_epoch`` (and the SLM's OOD training, not
-        ported, at ``joint_epoch``)."""
+        diffusion in at ``diff_epoch`` and the SLM's out-of-domain terms at
+        ``joint_epoch``."""
         losses = self.losses_cfg
         if self.mode == "first":
             return float(epoch >= losses["tma_epoch"]), 0.0, 0.0
@@ -273,6 +439,96 @@ class StyleTTS2Trainer(TrainerBase):
 
     def tma_active(self, epoch: int) -> bool:
         return self.mode == "second" or epoch >= self.losses_cfg["tma_epoch"]
+
+    def ood_active(self, epoch: int) -> bool:
+        """Whether ``epoch``'s steps decode out-of-domain texts for the SLM
+        (stage 2 from ``joint_epoch``, with a bank and a WavLM)."""
+        return (self.ood_bank is not None and self.mode == "second"
+                and epoch >= self.losses_cfg["joint_epoch"])
+
+    # -- the out-of-domain bank and the SLM ------------------------------------
+    def load_ood_bank(self) -> Optional[dict]:
+        """The preprocessed out-of-domain sentences (``{save_dir}/ood/
+        <lang>.psv``, written by ``preprocess ... -s ood``) as a token bank
+        on the device: ``tokens`` (S, max text length) zero-padded and
+        ``lengths`` (S,), at most 512 sentences of at least
+        ``OOD_min_length`` characters (all of them where none is that
+        long). None where there are none."""
+        ood_dir = Path(self.config["preprocessing"]["save_dir"]) / "ood"
+        files = sorted(ood_dir.glob("*.psv")) if ood_dir.is_dir() else []
+        if not files:
+            logger.warning("SLM-adversarial training is on but no OOD sentences were found — "
+                           "run `preprocess text-to-wav <config> -s ood` to stage them; "
+                           "continuing with the in-domain SLM loss only.")
+            return None
+        tp, level = self.dataset.text_processor, self.dataset.level
+        max_len = self.dataset.max_text_len
+        min_chars = self.training_config.get("OOD_min_length") or 0
+        rows = [(path.stem, row.get("text") or row.get("characters") or "")
+                for path in files for row in generic_psv_filelist_reader(path)]
+        rows = [r for r in rows if r[1].strip()]
+        long_enough = [r for r in rows if len(r[1]) >= min_chars]
+        if rows and not long_enough:
+            logger.warning(f"All {len(rows)} OOD sentences are shorter than "
+                           f"OOD_min_length={min_chars}; using them anyway.")
+            long_enough = rows
+        tokens, lengths = [], []
+        for lang, text in long_enough:
+            try:
+                ids = tp.encode_text(text, apply_g2p=(level == "phones"),
+                                     lang_id=lang if level == "phones" else None, quiet=True)
+            except Exception:
+                ids = tp.encode_text(text, quiet=True)
+            if not ids:
+                continue
+            ids = list(ids)[:max_len]
+            lengths.append(len(ids))
+            tokens.append(ids + [0] * (max_len - len(ids)))
+            if len(tokens) >= OOD_BANK_SIZE:
+                break
+        if not tokens:
+            return None
+        logger.info(f"SLM-adversarial OOD bank: {len(tokens)} sentences")
+        return {"tokens": torch.tensor(tokens, dtype=torch.long, device=self.device),
+                "lengths": torch.tensor(lengths, dtype=torch.long, device=self.device)}
+
+    def slm_features(self, wav: torch.Tensor) -> torch.Tensor:
+        """WavLM's stacked hidden states (B, T, (layers+1)·hidden), float32,
+        of output-rate wavs resampled to ``model.slm.sr``; the gradient
+        flows to the wavs, never into WavLM's frozen parameters."""
+        a = self.config["preprocessing"]["audio"]
+        wav16 = resample(wav, a["output_sampling_rate"], self.config["model"]["slm"]["sr"])
+        dtype = next(self.wavlm.parameters()).dtype
+        return stack_hidden_states(self.wavlm(wav16.to(dtype))).float()
+
+    def synthesize_ood(self, batch: dict, index: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Decode the bank's texts ``index`` (B,) end to end (predicted
+        durations and F0, styles from the batch's mels), the leading clip
+        of ``segment_frames`` where the model decodes clips."""
+        starts = (torch.zeros(index.shape[0], dtype=torch.long, device=index.device)
+                  if self.model.segment_frames is not None else None)
+        return self.model(self.ood_bank["tokens"][index], self.ood_bank["lengths"][index],
+                          batch["mel"], batch["mel_lengths"], None, None, noise,
+                          segment_starts=starts)["wav"]
+
+    def target_f0_frames(self, batch: dict) -> torch.Tensor:
+        """Frame F0 targets: the frozen JDC network's on the mel (zero past
+        each row's frames) where it is staged, else the batch's."""
+        if self.jdc is None:
+            return batch["f0_frames"]
+        with torch.no_grad():
+            f0 = jdc_f0(self.jdc, batch["mel"])
+        valid = lengths_to_mask(batch["mel_lengths"], batch["mel"].shape[1])
+        return f0 * valid.to(f0.dtype)
+
+    def teacher_f0(self, batch: dict) -> tuple:
+        """Frame F0 (``target_f0_frames``) and token F0 over the batch's
+        durations: the JDC's frames re-averaged where it is staged, else the
+        batch's own token F0."""
+        f0_frames = self.target_f0_frames(batch)
+        f0_tokens = (alignment.phone_average_by_durations(f0_frames, batch["durations"])
+                     if self.jdc is not None else batch["f0_tokens"])
+        return f0_frames, f0_tokens
 
     # -- the step --------------------------------------------------------
     def draw_step(self, batch: dict, generator: Optional[torch.Generator] = None) -> StepDraws:
@@ -296,26 +552,38 @@ class StyleTTS2Trainer(TrainerBase):
         def normal(*shape):
             return torch.randn(shape, generator=g, device=device)
 
-        return StepDraws(starts, normal(b, n), normal(b, n), normal(b), normal(b, style),
-                         normal(b, style))
+        draws = StepDraws(starts, normal(b, n), normal(b, n), normal(b), normal(b, style),
+                          normal(b, style))
+        if self.asr_geometry is not None:
+            draws.asr_unk, draws.asr_keep = draw_asr_masks(
+                b, batch["text"].shape[1], self.asr_geometry["hidden_dim"] // 2, g, device)
+        if self.ood_bank is not None:
+            size = self.ood_bank["tokens"].shape[0]
+            draws.ood_index_disc = torch.randint(size, (b,), generator=g, device=device)
+            draws.ood_index_gen = torch.randint(size, (b,), generator=g, device=device)
+            draws.ood_noise_disc, draws.ood_noise_gen = normal(b, n), normal(b, n)
+        return draws
 
     def alignment_targets(self, batch: dict, tma_active: bool) -> dict:
-        """Durations and token F0/energy targets, once a step and without
-        gradient: the batch's before the TMA phase; after it, the Viterbi
-        path of the aligner's attention (dropout off, the parameters
-        before the step's updates), with F0 and energy re-averaged over that
-        path."""
-        targets = {"f0_frames": batch["f0_frames"]}
-        if not tma_active:
-            return {**targets, "durations": batch["durations"], "f0_tokens": batch["f0_tokens"],
-                    "energy_tokens": batch["energy_tokens"]}
+        """Durations, frame F0 (``target_f0_frames``) and token F0/energy
+        targets, once a step and without gradient: the batch's durations
+        before the TMA phase (the token F0 re-averaged over them where the
+        JDC gives the F0); from it on, or from epoch 0 with the ASR aligner
+        staged, the Viterbi path of the aligner's attention (dropout off,
+        the parameters before the step's updates), with F0 and energy
+        re-averaged over that path."""
+        if not (tma_active or self.asr_geometry is not None):
+            f0_frames, f0_tokens = self.teacher_f0(batch)
+            return {"f0_frames": f0_frames, "durations": batch["durations"],
+                    "f0_tokens": f0_tokens, "energy_tokens": batch["energy_tokens"]}
+        f0_frames = self.target_f0_frames(batch)
         with torch.no_grad(), deterministic(self.model):
-            _, logprob = self.model.align_text_mel(batch["text"], batch["text_lengths"],
-                                                   batch["mel"], batch["mel_lengths"],
-                                                   batch.get("language_id"))
+            _, logprob, _ = self.model.align_text_mel(batch["text"], batch["text_lengths"],
+                                                      batch["mel"], batch["mel_lengths"],
+                                                      batch.get("language_id"))
         hard = alignment.viterbi_alignment(logprob, batch["text_lengths"], batch["mel_lengths"])
-        return {**targets, "durations": alignment.durations_from_hard_attention(hard),
-                "f0_tokens": alignment.phone_average(batch["f0_frames"], hard),
+        return {"f0_frames": f0_frames, "durations": alignment.durations_from_hard_attention(hard),
+                "f0_tokens": alignment.phone_average(f0_frames, hard),
                 "energy_tokens": alignment.phone_average(batch["energy_frames"], hard)}
 
     def decode(self, batch: dict, targets: dict, noise: torch.Tensor) -> dict:
@@ -337,37 +605,69 @@ class StyleTTS2Trainer(TrainerBase):
     def _log_mel(self, wav: torch.Tensor) -> torch.Tensor:
         return dynamic_range_compression(self.mel_fn(wav))
 
-    def discriminator_grads(self, batch: dict, targets: dict, noise: torch.Tensor) -> tuple:
-        """(loss, gradients by parameter name) of the discriminators on the
-        real clips and a decode of their own (its own noise and dropout)."""
+    def discriminator_grads(self, batch: dict, targets: dict, draws: StepDraws,
+                            joint_on: float = 0.0, ood_active: bool = False) -> tuple:
+        """(metrics, gradients by parameter name) of the discriminators on
+        the real clips and a decode of their own (its own noise and
+        dropout); with the SLM, its head's LSGAN loss on WavLM's features of
+        the same real and fake clips (``disc/slm``), and while
+        ``ood_active`` on the real clips against an out-of-domain decode,
+        weighted by ``joint_on`` (``disc/slm_ood``). ``disc/total`` is the
+        sum the gradients are of."""
         with torch.no_grad():
-            fake = self.decode(batch, targets, noise)["wav"]
+            fake = self.decode(batch, targets, draws.disc_noise)["wav"]
         real = self.real_clip(batch["audio"], targets["segment_starts"], fake.shape[1])
         real_scores, _ = self.discriminators(real)
         fake_scores, _ = self.discriminators(fake)
         loss = discriminator_loss(real_scores, fake_scores)
+        metrics = {}
+        if self.wavlm is not None:
+            head = self.discriminators.slm
+            with torch.no_grad():
+                feats_real, feats_fake = self.slm_features(real), self.slm_features(fake)
+            metrics["disc/slm"] = slm_discriminator_loss(head(feats_real), head(feats_fake))
+            loss = loss + metrics["disc/slm"]
+            if ood_active:
+                with torch.no_grad():
+                    feats_ood = self.slm_features(self.synthesize_ood(
+                        batch, draws.ood_index_disc, draws.ood_noise_disc))
+                metrics["disc/slm_ood"] = slm_discriminator_loss(head(feats_real),
+                                                                 head(feats_ood))
+                loss = loss + joint_on * metrics["disc/slm_ood"]
+        metrics["disc/total"] = loss
         grads = torch.autograd.grad(loss, list(self.disc_params.values()))
-        return loss, dict(zip(self.disc_params, grads))
+        return metrics, dict(zip(self.disc_params, grads))
 
     def generator_grads(self, batch: dict, targets: dict, draws: StepDraws, diff_on: float,
-                        tma_active: bool) -> tuple:
+                        tma_active: bool, joint_on: float = 0.0,
+                        ood_active: bool = False) -> tuple:
         """(losses, gradients of their total by parameter name): with the
-        TMA on, the aligner again (with dropout) for the forward-sum
-        (``s2s``) and binarization (``mono``) losses; the mel, duration, F0
-        and energy losses and the adversarial and feature-matching losses
-        against the current discriminators on a second decode; in stage 2
-        the diffusion and style reconstruction losses on the detached joint
-        style, weighted by ``diff_on``."""
+        TMA on, the aligner again (with dropout, and the ASR decoder's
+        draws) for the ``s2s`` loss (the ASR decoder's seq2seq
+        cross-entropy, or the stand-in's forward-sum) and the binarization
+        (``mono``) loss; the mel, duration, F0 and energy losses and the
+        adversarial and feature-matching losses against the current
+        discriminators on a second decode; in stage 2 the diffusion and
+        style reconstruction losses on the detached joint style, weighted by
+        ``diff_on``; with the SLM its generator loss on that decode
+        (``slm``) and, while ``ood_active``, on an out-of-domain decode
+        (``slm_ood``, weighted by ``joint_on``), the gradient flowing
+        through the frozen WavLM to the wavs."""
         lc = self.losses_cfg
         text_lengths, mel_lengths = batch["text_lengths"], batch["mel_lengths"]
         src_mask = lengths_to_mask(text_lengths, batch["text"].shape[1])
         zero = torch.zeros((), device=self.device)
         losses = {"s2s": zero, "mono": zero}
         if tma_active:
-            attn_soft, attn_logprob = self.model.align_text_mel(
-                batch["text"], text_lengths, batch["mel"], mel_lengths, batch.get("language_id"))
+            asr_draws = None if draws.asr_unk is None else (draws.asr_unk, draws.asr_keep)
+            attn_soft, attn_logprob, aux = self.model.align_text_mel(
+                batch["text"], text_lengths, batch["mel"], mel_lengths, batch.get("language_id"),
+                asr_draws=asr_draws)
             hard = alignment.viterbi_alignment(attn_logprob, text_lengths, mel_lengths)
-            losses["s2s"] = alignment.forward_sum_loss(attn_logprob, text_lengths, mel_lengths)
+            if "s2s_logits" in aux:
+                losses["s2s"] = asr_s2s_loss(aux["s2s_logits"], batch["text"], src_mask)
+            else:
+                losses["s2s"] = alignment.forward_sum_loss(attn_logprob, text_lengths, mel_lengths)
             losses["mono"] = alignment.binarization_loss(attn_soft, hard)
         out = self.decode(batch, targets, draws.gen_noise)
         fake = out["wav"]
@@ -404,6 +704,14 @@ class StyleTTS2Trainer(TrainerBase):
             losses["sty"] = style_reconstruction_loss(denoised, joint)
             total = total + diff_on * (lc["lambda_diff"] * losses["diff"]
                                        + lc["lambda_sty"] * losses["sty"])
+        if self.wavlm is not None:
+            head = self.discriminators.slm
+            losses["slm"] = slm_generator_loss(head(self.slm_features(fake)))
+            total = total + lc["lambda_slm"] * losses["slm"]
+            if ood_active:
+                ood = self.synthesize_ood(batch, draws.ood_index_gen, draws.ood_noise_gen)
+                losses["slm_ood"] = slm_generator_loss(head(self.slm_features(ood)))
+                total = total + joint_on * lc["lambda_slm"] * losses["slm_ood"]
         losses["total"] = total
         grads = torch.autograd.grad(total, list(self.gen_params.values()), allow_unused=True)
         return losses, dict(zip(self.gen_params, grads))
@@ -415,20 +723,21 @@ class StyleTTS2Trainer(TrainerBase):
         returns the (detached) losses, each computed before the update it
         drives."""
         epoch = self.epoch if epoch is None else epoch
-        tma = self.tma_active(epoch)
-        _, diff_on, _ = self.phase_weights(epoch)
+        tma, ood = self.tma_active(epoch), self.ood_active(epoch)
+        _, diff_on, joint_on = self.phase_weights(epoch)
         self.model.train()
         self.discriminators.train()
         with no_tf32():
             draws = draws if draws is not None else self.draw_step(batch)
             targets = self.alignment_targets(batch, tma)
             targets["segment_starts"] = draws.segment_starts
-            d_loss, d_grads = self.discriminator_grads(batch, targets, draws.disc_noise)
+            d_metrics, d_grads = self.discriminator_grads(batch, targets, draws, joint_on, ood)
             self.disc_grad_norm = self.disc_opt.step(self.disc_params, d_grads,
                                                      self.disc_opt_state)
-            losses, g_grads = self.generator_grads(batch, targets, draws, diff_on, tma)
+            losses, g_grads = self.generator_grads(batch, targets, draws, diff_on, tma,
+                                                   joint_on, ood)
             self.grad_norm = self.gen_opt.step(self.gen_params, g_grads, self.gen_opt_state)
-        return {"disc/total": d_loss.detach(),
+        return {**{k: v.detach() for k, v in d_metrics.items()},
                 **{f"gen/{k}": v.detach() for k, v in losses.items()}}
 
     # -- validation -----------------------------------------------------
@@ -447,8 +756,9 @@ class StyleTTS2Trainer(TrainerBase):
         on the teacher durations and F0, decoded over all ``max_len``
         frames; pad rows (``row_weights`` 0) count nowhere."""
         with torch.no_grad(), no_tf32(), deterministic(self.model):
+            f0_frames, f0_tokens = self.teacher_f0(batch)
             out = self.model(batch["text"], batch["text_lengths"], batch["mel"],
-                             batch["mel_lengths"], batch["durations"], batch["f0_frames"],
+                             batch["mel_lengths"], batch["durations"], f0_frames,
                              self.validation_noise(batch["mel"].shape[0]))
             fake = out["wav"]
             diff = torch.abs(self._log_mel(fake) - self._log_mel(batch["audio"][:, : fake.shape[1]]))
@@ -465,7 +775,7 @@ class StyleTTS2Trainer(TrainerBase):
                 "ce": duration_ce_loss(out["duration_logits"], durations, src_mask,
                                        self.model.max_dur),
                 "dur": duration_l1_loss(out["duration_logits"], durations, src_mask),
-                "f0": f0_loss(out["f0_prediction"], batch["f0_tokens"], src_mask),
+                "f0": f0_loss(out["f0_prediction"], f0_tokens, src_mask),
                 "norm": norm_loss(out["energy_prediction"], batch["energy_tokens"], src_mask),
             }
             lc = self.losses_cfg
@@ -493,14 +803,49 @@ class StyleTTS2Trainer(TrainerBase):
     # -- parameters and checkpoints ---------------------------------------
     def init_params(self, seed: int = 0) -> None:
         """flax-like initial parameters for both networks, drawn on the host
-        from one generator seeded with ``seed`` and copied to the device."""
+        from one generator seeded with ``seed`` and copied to the device,
+        then the staged PL-BERT and ASR aligner grafted over theirs."""
         gen = torch.Generator().manual_seed(seed)
         init_styletts2_parameters(self.model, gen)
         init_hifigan_parameters(self.discriminators, gen)
+        if self.wavlm is not None:
+            with torch.no_grad():
+                for conv in self.discriminators.slm.children():
+                    std = 1.0 / math.sqrt(conv.weight[0].numel()) / LECUN_TRUNCATED_STD
+                    conv.weight.copy_(_truncated_normal(conv.weight.shape, std, gen))
+                    conv.bias.zero_()
+        if self._plbert_pretrained is not None:
+            self.graft_pretrained("plbert_encoder", self._plbert_pretrained, "PL-BERT")
+        if self._asr_pretrained is not None:
+            self.graft_pretrained("text_aligner", {"params": self._asr_pretrained},
+                                  "the ASR aligner")
+
+    def graft_pretrained(self, name: str, tree: dict, what: str) -> None:
+        """Load a converted pretrained flax tree into the generator's
+        ``name`` submodule, checking that its structure and every shape are
+        the submodule's (a mismatch means the staged checkpoint's geometry
+        disagrees with the config's model)."""
+        module = getattr(self.model, name, None)
+        if module is None:
+            raise ValueError(f"Model has no '{name}' subtree to graft {what} into — the module "
+                             "was built without it.")
+        try:
+            state, _ = flax_to_torch(tree, module)
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"The converted {what} parameter tree does not match the model's "
+                             f"'{name}' structure — check the staged checkpoint and its "
+                             f"config.yml ({e}).") from None
+        for key, value in module.state_dict().items():
+            if key in state and tuple(state[key].shape) != tuple(value.shape):
+                raise ValueError(f"Shape mismatch grafting {what}: expected "
+                                 f"{tuple(value.shape)}, checkpoint has {tuple(state[key].shape)}.")
+        module.load_state_dict(state)
 
     def load_params(self, tree: dict) -> None:
         """Parameters from a checkpoint tree of either package: its
-        ``generator`` and ``discriminators`` subtrees, each where present."""
+        ``generator`` and ``discriminators`` subtrees, each where present (a
+        discriminators tree without the SLM head's ``slm``, as stage 1
+        writes, leaves the head as it is)."""
         for key, module in (("generator", self.model), ("discriminators", self.discriminators)):
             if key in tree:
                 module.load_state_dict(flax_to_torch(tree[key], module)[0])
@@ -531,9 +876,10 @@ class StyleTTS2Trainer(TrainerBase):
         }
 
     def checkpoint_extra(self) -> dict:
-        """The header's stage tag and pretrained-component geometry (none:
-        the stand-ins), which serving rebuilds the module from."""
-        return {"stage": self.mode, "pretrained_components": {"plbert": None, "asr": None}}
+        """The header's stage tag and the pretrained components' geometries
+        (None for a stand-in), which serving rebuilds the module from."""
+        return {"stage": self.mode, "pretrained_components": {"plbert": self.plbert_geometry,
+                                                              "asr": self.asr_geometry}}
 
     def resolve_first_stage_path(self, configured) -> Optional[Path]:
         """The stage-1 checkpoint stage 2 starts from: ``configured`` as

@@ -8,6 +8,20 @@ the iSTFTNet variant), a project of config files over a corpus, laid out as
 the JAX package's wizard lays one out, and a StyleTTS2 training project on
 it with an out-of-domain text file.
 
+``write_pretrained_components`` writes StyleTTS2's four pretrained
+components as seeded files in their published formats and, by default, at
+their published geometries: the JDC pitch network's ``bst.t7``, the ASR
+aligner's ``epoch_00080.pth`` with its ``config.yml``, the multilingual
+PL-BERT's ``step_1100000.t7`` with its ``config.yml``, and a HuggingFace
+``wavlm-base-plus`` directory (``config.json``, ``pytorch_model.bin``: 94 M
+parameters, 0.38 GB in float32). The repository holds no pretrained
+weights and the card's machine has no network, so these stand in for the
+downloads ``fetch-pretrained`` would stage: they drive the same loaders,
+converters and training path, and a run on them says nothing of the
+published weights' quality. ``write_styletts2_pretrained_project`` gives a
+StyleTTS2 project the ``-c`` overrides that point at them, as
+``fetch-pretrained`` prints them.
+
 The checkpoints hold random FastSpeech2 and HiFiGAN V1 weights at the
 default widths, drawn from a ``torch.Generator``, with the duration head's
 bias calibrated so that a 128-token text fills about 960 of the 1000 frames
@@ -19,6 +33,7 @@ checkpoint.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 from pathlib import Path
@@ -32,7 +47,11 @@ from everyvoice_tpu_torch.dsp.audio_io import write_wav
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
 from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
-from everyvoice_tpu_torch.models.styletts2.plbert import MULTILINGUAL_PLBERT
+from everyvoice_tpu_torch.models.styletts2.asr import ASR_GEOMETRY
+from everyvoice_tpu_torch.models.styletts2.jdc import JDC_BINS, JDC_CHANNELS, JDC_LSTM_HIDDEN
+from everyvoice_tpu_torch.models.styletts2.plbert import MULTILINGUAL_PLBERT, PLBERT_CONFIG_NAMES
+from everyvoice_tpu_torch.models.styletts2.slm import BASE_PLUS
+from everyvoice_tpu_torch.utils import yaml_lite
 from everyvoice_tpu_torch.text import TextProcessor
 from everyvoice_tpu_torch.train.checkpoint import save_checkpoint
 from everyvoice_tpu_torch.utils import (
@@ -302,3 +321,211 @@ def write_styletts2_project(root: Path, n_utts: int, seed: int = 0, name: str = 
     config["training"]["ood_raw_data"] = {"default": {"local_path": str(ood.resolve())}}
     write_config_file(path, config)
     return path
+
+
+# ---------------------------------------------------------------------------
+# StyleTTS2's pretrained components, seeded, in their published formats
+
+
+def _weight(gen: torch.Generator, *shape, fan_in: int | None = None, std: float | None = None):
+    """N(0, 1/fan_in) (the second axis onward's size by default), or
+    N(0, std²)."""
+    scale = std if std is not None else (fan_in or int(np.prod(shape[1:]))) ** -0.5
+    return torch.randn(shape, generator=gen) * scale
+
+
+def _norm(prefix: str, n: int, stats: bool = False, gen=None) -> dict:
+    out = {f"{prefix}.weight": torch.ones(n), f"{prefix}.bias": torch.zeros(n)}
+    if stats:  # a batch norm's running statistics, not trivial
+        out[f"{prefix}.running_mean"] = 0.1 * torch.randn(n, generator=gen)
+        out[f"{prefix}.running_var"] = 1.0 + 0.2 * torch.rand(n, generator=gen)
+    return out
+
+
+def published_jdc_state(gen: torch.Generator, channels=JDC_CHANNELS,
+                        lstm_hidden: int = JDC_LSTM_HIDDEN) -> dict:
+    """A JDCNet state dict under the published keys (the classifier path:
+    ``conv_block``, ``res_block1..3``, ``pool_block``,
+    ``bilstm_classifier``, ``classifier``)."""
+    c0, c1, c2, c3 = channels
+    state = {"conv_block.0.weight": _weight(gen, c0, 1, 3, 3),
+             **_norm("conv_block.1", c0, True, gen),
+             "conv_block.3.weight": _weight(gen, c0, c0, 3, 3)}
+    for i, (cin, cout) in enumerate(((c0, c1), (c1, c2), (c2, c3)), 1):
+        p = f"res_block{i}"
+        state.update({**_norm(f"{p}.pre_conv.0", cin, True, gen),
+                      f"{p}.conv.0.weight": _weight(gen, cout, cin, 3, 3),
+                      **_norm(f"{p}.conv.1", cout, True, gen),
+                      f"{p}.conv.3.weight": _weight(gen, cout, cout, 3, 3),
+                      f"{p}.conv1by1.weight": _weight(gen, cout, cin, 1, 1)})
+    state.update(_norm("pool_block.0", c3, True, gen))
+    feat, h = c3 * JDC_BINS, lstm_hidden
+    for suffix in ("", "_reverse"):
+        lstm = f"bilstm_classifier.{{}}_l0{suffix}"
+        state.update({lstm.format("weight_ih"): _weight(gen, 4 * h, feat),
+                      lstm.format("weight_hh"): _weight(gen, 4 * h, h),
+                      lstm.format("bias_ih"): torch.zeros(4 * h),
+                      lstm.format("bias_hh"): torch.zeros(4 * h)})
+    state.update({"classifier.weight": _weight(gen, 1, 2 * h, std=10.0),
+                  "classifier.bias": torch.full((1,), 100.0)})  # F0 of 100-250 Hz
+    return state
+
+
+def published_asr_state(gen: torch.Generator, geometry: dict = ASR_GEOMETRY) -> dict:
+    """An ASRCNN state dict under the published aligner's keys."""
+    hid, n_token = geometry["hidden_dim"], geometry["n_token"]
+    emb, h = geometry["token_embedding_dim"], geometry["hidden_dim"] // 2
+    state = {"init_cnn.conv.weight": _weight(gen, hid, geometry["input_dim"] // 2, 7),
+             "init_cnn.conv.bias": torch.zeros(hid),
+             "projection.conv.weight": _weight(gen, h, hid, 1), "projection.conv.bias": torch.zeros(h),
+             "ctc_linear.0.linear_layer.weight": _weight(gen, hid, h),
+             "ctc_linear.0.linear_layer.bias": torch.zeros(hid),
+             "ctc_linear.2.linear_layer.weight": _weight(gen, n_token, hid),
+             "ctc_linear.2.linear_layer.bias": torch.zeros(n_token)}
+    for i in range(geometry["n_layers"]):
+        for j in range(3):
+            inner = f"cnns.{i}.0.blocks.{j}"
+            state.update({f"{inner}.0.conv.weight": _weight(gen, hid, hid, 3),
+                          f"{inner}.0.conv.bias": torch.zeros(hid), **_norm(f"{inner}.2", hid),
+                          f"{inner}.4.conv.weight": _weight(gen, hid, hid, 3),
+                          f"{inner}.4.conv.bias": torch.zeros(hid)})
+        state.update(_norm(f"cnns.{i}.1", hid))
+    a = "asr_s2s.attention_layer"
+    state.update({
+        "asr_s2s.embedding.weight": _weight(gen, n_token, emb, std=0.1),
+        "asr_s2s.decoder_rnn.weight_ih": _weight(gen, 4 * h, emb + h),
+        "asr_s2s.decoder_rnn.weight_hh": _weight(gen, 4 * h, h),
+        "asr_s2s.decoder_rnn.bias_ih": torch.zeros(4 * h),
+        "asr_s2s.decoder_rnn.bias_hh": torch.zeros(4 * h),
+        f"{a}.query_layer.linear_layer.weight": _weight(gen, h, h),
+        f"{a}.memory_layer.linear_layer.weight": _weight(gen, h, h),
+        f"{a}.v.linear_layer.weight": _weight(gen, 1, h),
+        f"{a}.location_layer.location_conv.conv.weight": _weight(gen, 32, 2, 63),
+        f"{a}.location_layer.location_dense.linear_layer.weight": _weight(gen, h, 32),
+        "asr_s2s.project_to_hidden.0.linear_layer.weight": _weight(gen, h, 2 * h),
+        "asr_s2s.project_to_hidden.0.linear_layer.bias": torch.zeros(h),
+        "asr_s2s.project_to_n_symbols.weight": _weight(gen, n_token, h),
+        "asr_s2s.project_to_n_symbols.bias": torch.zeros(n_token),
+    })
+    return state
+
+
+def published_albert_state(gen: torch.Generator, geometry: dict = MULTILINGUAL_PLBERT) -> dict:
+    """A ``transformers.AlbertModel`` state dict (one shared layer)."""
+    hid, emb = geometry["hidden_size"], geometry["embedding_size"]
+    inter = geometry["intermediate_size"]
+    state = {"embeddings.word_embeddings.weight": _weight(gen, geometry["vocab_size"], emb, std=0.02),
+             "embeddings.position_embeddings.weight":
+                 _weight(gen, geometry["max_position_embeddings"], emb, std=0.02),
+             "embeddings.token_type_embeddings.weight": _weight(gen, 2, emb, std=0.02),
+             **_norm("embeddings.LayerNorm", emb),
+             "encoder.embedding_hidden_mapping_in.weight": _weight(gen, hid, emb),
+             "encoder.embedding_hidden_mapping_in.bias": torch.zeros(hid)}
+    lp = "encoder.albert_layer_groups.0.albert_layers.0"
+    for name, (o, i) in {"attention.query": (hid, hid), "attention.key": (hid, hid),
+                         "attention.value": (hid, hid), "attention.dense": (hid, hid),
+                         "ffn": (inter, hid), "ffn_output": (hid, inter)}.items():
+        state.update({f"{lp}.{name}.weight": _weight(gen, o, i), f"{lp}.{name}.bias": torch.zeros(o)})
+    for name in ("attention.LayerNorm", "full_layer_layer_norm"):
+        state.update(_norm(f"{lp}.{name}", hid))
+    return state
+
+
+def published_wavlm_state(gen: torch.Generator, geometry: dict = BASE_PLUS) -> dict:
+    """A ``transformers.WavLMModel`` state dict, its positional conv's
+    weight norm under the ``parametrizations`` keys."""
+    hid, heads = geometry["hidden_size"], geometry["num_heads"]
+    conv_dim, inter = list(geometry["conv_dim"]), geometry["intermediate_size"]
+    state = {}
+    for i, (ch, k) in enumerate(zip(conv_dim, geometry["conv_kernel"])):
+        cin = 1 if i == 0 else conv_dim[i - 1]
+        state[f"feature_extractor.conv_layers.{i}.conv.weight"] = _weight(gen, ch, cin, k)
+    state.update(_norm("feature_extractor.conv_layers.0.layer_norm", conv_dim[0]))
+    state.update(_norm("feature_projection.layer_norm", conv_dim[-1]))
+    state.update({"feature_projection.projection.weight": _weight(gen, hid, conv_dim[-1]),
+                  "feature_projection.projection.bias": torch.zeros(hid)})
+    kp, groups = geometry["num_conv_pos_embeddings"], geometry["num_conv_pos_embedding_groups"]
+    v = _weight(gen, hid, hid // groups, kp)
+    pc = "encoder.pos_conv_embed.conv"
+    state.update({f"{pc}.parametrizations.weight.original0":
+                      torch.sqrt((v ** 2).sum(dim=(0, 1), keepdim=True)),
+                  f"{pc}.parametrizations.weight.original1": v, f"{pc}.bias": torch.zeros(hid)})
+    state.update(_norm("encoder.layer_norm", hid))
+    state["encoder.layers.0.attention.rel_attn_embed.weight"] = _weight(
+        gen, geometry["num_buckets"], heads, std=0.02)
+    for i in range(geometry["num_layers"]):
+        pre = f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            state.update({f"{pre}.attention.{name}.weight": _weight(gen, hid, hid),
+                          f"{pre}.attention.{name}.bias": torch.zeros(hid)})
+        state.update({f"{pre}.attention.gru_rel_pos_linear.weight": _weight(gen, 8, hid // heads),
+                      f"{pre}.attention.gru_rel_pos_linear.bias": torch.zeros(8),
+                      f"{pre}.attention.gru_rel_pos_const": torch.ones(1, heads, 1, 1),
+                      **_norm(f"{pre}.layer_norm", hid),
+                      f"{pre}.feed_forward.intermediate_dense.weight": _weight(gen, inter, hid),
+                      f"{pre}.feed_forward.intermediate_dense.bias": torch.zeros(inter),
+                      f"{pre}.feed_forward.output_dense.weight": _weight(gen, hid, inter),
+                      f"{pre}.feed_forward.output_dense.bias": torch.zeros(hid),
+                      **_norm(f"{pre}.final_layer_norm", hid)})
+    return state
+
+
+def write_pretrained_components(root: Path, gen: torch.Generator, jdc: dict | None = None,
+                                asr: dict = ASR_GEOMETRY, plbert: dict = MULTILINGUAL_PLBERT,
+                                wavlm: dict = BASE_PLUS) -> dict:
+    """Seeded pretrained components under ``root``, in the published
+    formats (``jdc`` the ``published_jdc_state`` options; the other three
+    their geometries). Returns their paths: ``f0``, ``asr``,
+    ``asr_config``, ``plbert``, ``plbert_config`` and ``wavlm`` (a
+    directory)."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {"f0": root / "bst.t7", "asr": root / "asr" / "epoch_00080.pth",
+             "asr_config": root / "asr" / "config.yml",
+             "plbert": root / "plbert" / "step_1100000.t7",
+             "plbert_config": root / "plbert" / "config.yml", "wavlm": root / "wavlm-base-plus"}
+    for key in ("asr", "plbert", "wavlm"):
+        (paths[key] if key == "wavlm" else paths[key].parent).mkdir(parents=True, exist_ok=True)
+    torch.save({"net": published_jdc_state(gen, **(jdc or {}))}, paths["f0"])
+    torch.save({"model": published_asr_state(gen, asr)}, paths["asr"])
+    paths["asr_config"].write_text(yaml_lite.dump({"model_params": dict(asr)}), encoding="utf8")
+    albert = published_albert_state(gen, plbert)
+    torch.save({"net": {f"module.encoder.{k}": v for k, v in albert.items()}}, paths["plbert"])
+    names = {ours: theirs for theirs, ours in PLBERT_CONFIG_NAMES.items()}
+    paths["plbert_config"].write_text(yaml_lite.dump(
+        {"model_params": {names[k]: v for k, v in plbert.items()}}), encoding="utf8")
+    hf = {"model_type": "wavlm", "hidden_size": wavlm["hidden_size"],
+          "num_hidden_layers": wavlm["num_layers"], "num_attention_heads": wavlm["num_heads"],
+          "intermediate_size": wavlm["intermediate_size"], "conv_dim": list(wavlm["conv_dim"]),
+          "conv_kernel": list(wavlm["conv_kernel"]), "conv_stride": list(wavlm["conv_stride"]),
+          "num_buckets": wavlm["num_buckets"], "max_bucket_distance": wavlm["max_distance"],
+          "num_conv_pos_embeddings": wavlm["num_conv_pos_embeddings"],
+          "num_conv_pos_embedding_groups": wavlm["num_conv_pos_embedding_groups"],
+          "feat_extract_norm": "group", "conv_bias": False, "do_stable_layer_norm": False}
+    (paths["wavlm"] / "config.json").write_text(json.dumps(hf, indent=1), encoding="utf8")
+    torch.save(published_wavlm_state(gen, wavlm), paths["wavlm"] / "pytorch_model.bin")
+    return paths
+
+
+def pretrained_overrides(paths: dict) -> list:
+    """The ``-c`` overrides that point a text-to-wav config at
+    ``write_pretrained_components``' files, as ``fetch-pretrained`` prints
+    them."""
+    return [f"pretrained.f0.local_path={paths['f0']}",
+            f"pretrained.asr.local_checkpoint={paths['asr']}",
+            f"pretrained.asr.local_config={paths['asr_config']}",
+            f"pretrained.plbert.local_checkpoint={paths['plbert']}",
+            f"pretrained.plbert.local_config={paths['plbert_config']}",
+            f"model.slm.model={paths['wavlm']}"]
+
+
+def write_styletts2_pretrained_project(root: Path, n_utts: int, gen: torch.Generator,
+                                       seed: int = 0, **training) -> tuple:
+    """A StyleTTS2 project (``write_styletts2_project``, with its
+    out-of-domain text) and seeded pretrained components at their published
+    geometries under ``root/pretrained`` (``write_pretrained_components``).
+    Returns (config path, the ``-c`` overrides, the components' paths)."""
+    root = Path(root)
+    config_path = write_styletts2_project(root, n_utts, seed=seed, **training)
+    paths = write_pretrained_components(root / "pretrained", gen)
+    return config_path, pretrained_overrides(paths), paths

@@ -124,6 +124,9 @@ class TextProcessor:
                     for v in values
                 ]
             declared |= {v for v in values if v}
+        # Every declared symbol but punctuation, as the JAX config's
+        # ``all_except_punctuation``.
+        self.declared_symbols = frozenset(declared)
         declared |= set(DEFAULT_PUNCTUATION_HASH.values())
         declared |= set(self.punctuation_characters)
         initial = [PAD_SYMBOL, " "]

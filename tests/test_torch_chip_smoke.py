@@ -4,10 +4,12 @@ alignment stands in for the CPU's only where the two are a tie on the CPU
 log-probabilities that part by far less than a float32 rounding of the
 path's score, and refused for a path that scores worse by a whole unit.
 Also: ``alignment_ties.py``, which measures how often the devices part,
-imports nothing of JAX; and phase 12's ``check_st2_run`` reads a CPU
-StyleTTS2 run."""
+imports nothing of JAX; and ``check_st2_run`` reads a CPU StyleTTS2 run
+as phase 12 calls it, and a CPU run with the pretrained components as
+phase 13 calls it."""
 
 import importlib.util
+import shutil
 from pathlib import Path
 
 import pytest
@@ -79,6 +81,14 @@ def test_alignment_ties_imports_nothing_of_jax():
         assert f"from {name}." not in source
 
 
+@pytest.fixture(autouse=True)
+def drop_checkpoints(tmp_path):
+    """A test's StyleTTS2 run (about 1 GB of checkpoints) is deleted when it
+    ends, not with the session's temporary directory."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture
 def one_torch_thread():
     """torch on one thread beside the other test workers."""
@@ -132,3 +142,81 @@ def test_check_st2_run_reads_a_stage_run(chip_smoke, tmp_path, monkeypatch, one_
     monkeypatch.setattr(checkpoint, "load_checkpoint", lambda path: {**load(path), "stage": "second"})
     chip_smoke.check_st2_run(trainer, "stage-1-last.ckpt", chip_smoke.ST2_GEN_KEYS)
     assert failures and "header or trees" in failures[0]
+
+
+def test_check_st2_run_reads_a_regime2_run(chip_smoke, tmp_path, monkeypatch, one_torch_thread):
+    """``check_st2_run`` as phase 13 calls it passes a CPU stage-2 run of a
+    small StyleTTS2 with its four pretrained components (seeded files at
+    small widths) and an out-of-domain bank over two epochs of one
+    synthetic batch: the components' geometries in the headers,
+    ``multi_transform``'s optimizer state, the SLM terms in every record and
+    the out-of-domain ones from the joint epoch; it fails on a checkpoint
+    whose generator's optimizer state is a single ``adamw``'s."""
+    from everyvoice_tpu_torch.config import apply_overrides, styletts2_config
+    from everyvoice_tpu_torch.models.styletts2.train import StyleTTS2Trainer
+    from everyvoice_tpu_torch.onchip import TEXTS, pretrained_overrides, write_pretrained_components
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.train import checkpoint
+    from everyvoice_tpu_torch.utils import write_filelist
+    from test_torch_cuda import _st2_batch
+
+    paths = write_pretrained_components(
+        tmp_path / "pretrained", torch.Generator().manual_seed(0),
+        jdc={"channels": (8, 8, 16, 16), "lstm_hidden": 8},
+        asr={"input_dim": 80, "hidden_dim": 16, "n_token": 178, "n_layers": 1,
+             "token_embedding_dim": 8},
+        plbert={"vocab_size": 178, "hidden_size": 16, "num_layers": 1, "num_heads": 2,
+                "intermediate_size": 32, "embedding_size": 8, "max_position_embeddings": 64},
+        wavlm={"hidden_size": 16, "num_layers": 1, "num_heads": 2, "intermediate_size": 32,
+               "conv_dim": (8,) * 7, "conv_kernel": (10, 3, 3, 3, 3, 2, 2),
+               "conv_stride": (5, 2, 2, 2, 2, 2, 2), "num_buckets": 32, "max_distance": 80,
+               "num_conv_pos_embeddings": 15, "num_conv_pos_embedding_groups": 4})
+    (tmp_path / "pre" / "ood").mkdir(parents=True)
+    write_filelist([{"text": t} for t in TEXTS[:4]], tmp_path / "pre" / "ood" / "default.psv")
+    config = styletts2_config(apply_overrides({
+        "contact": {"contact_name": "Smoke", "contact_email": "smoke@example.org"},
+        "model": {"hidden_dim": 32, "style_dim": 16, "max_dur": 20, "slm": {"initial_channel": 8},
+                  "decoder": {"mpd_layers": [2], "msd_layers": 1, "upsample_rates": [8],
+                              "upsample_kernel_sizes": [16], "gen_istft_n_fft": 64,
+                              "gen_istft_hop_size": 32},
+                  "diffusion": {"transformer": {"num_layers": 1, "num_heads": 2,
+                                                "head_features": 8}}},
+        "preprocessing": {"save_dir": str(tmp_path / "pre")},
+        "training": {"max_len": 64, "decoder_segment_frames": 16, "epochs_2nd": 2,
+                     "OOD_min_length": 10, "losses": {"diff_epoch": 1, "joint_epoch": 1},
+                     "logger": {"save_dir": str(tmp_path), "name": "smoke"}},
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}},
+        pretrained_overrides(paths)))
+
+    class Data:
+        text_processor = TextProcessor(config["text"])
+        n_symbols = len(text_processor.symbols)
+        level = "characters"
+        max_text_len = 12
+        items: list = []
+
+        def batches(self, *args, **kwargs):
+            yield {k: v.numpy() for k, v in _st2_batch("cpu").items()}
+
+    trainer = StyleTTS2Trainer(config, Data(), Data(), {"default": 0}, run_dir=tmp_path / "run",
+                               mode="second", device="cpu")
+    trainer.fit(log_every=1)
+    components = {"plbert": trainer.plbert_geometry, "asr": trainer.asr_geometry}
+    keys = chip_smoke.ST2_GEN_KEYS | {"gen/diff", "gen/sty", "gen/slm", "disc/slm"}
+    failures = []
+    monkeypatch.setattr(chip_smoke, "fail", failures.append)
+    records = chip_smoke.check_st2_run(trainer, "stage-2-last.ckpt", keys, components,
+                                       later_keys=chip_smoke.ST2P_LATER_KEYS)
+    assert failures == [] and [r["step"] for r in records] == [1, 2]
+    assert "training/gen/slm_ood" in records[1] and "training/gen/slm_ood" not in records[0]
+    load = checkpoint.load_checkpoint
+
+    def single_adamw(path):
+        ckpt = load(path)
+        ckpt["optimizer_states"]["gen"] = ckpt["optimizer_states"]["disc"]
+        return ckpt
+
+    monkeypatch.setattr(checkpoint, "load_checkpoint", single_adamw)
+    chip_smoke.check_st2_run(trainer, "stage-2-last.ckpt", keys, components,
+                             later_keys=chip_smoke.ST2P_LATER_KEYS)
+    assert failures and "multi_transform" in failures[0]

@@ -23,6 +23,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -416,6 +417,91 @@ def test_train_text_to_wav_both_stages_on_the_cpu(world, st2_world, monkeypatch,
         assert header["stage"] == mode and header["global_step"] == 2
 
 
+def test_train_text_to_wav_with_pretrained_components_on_the_cpu(
+        world, st2_world, monkeypatch, caplog, tmp_path, one_torch_thread):
+    """Both stages with ``-a cpu`` and the ``-c`` overrides that point at
+    seeded components in the published formats (small widths): the JAX
+    trainer's run layout, the components' geometries in both headers as the
+    JAX trainer records them, the JDC's F0 and the ASR aligner's ``s2s``
+    loss in stage 1, and the SLM's terms (out-of-domain ones included) in
+    stage 2."""
+    from types import SimpleNamespace
+
+    import jax
+
+    from everyvoice_tpu.models.styletts2.train import StyleTTS2Trainer as JaxTrainer
+    from everyvoice_tpu.parallel import make_mesh
+    from everyvoice_tpu.text import TextProcessor as JaxTextProcessor
+    from everyvoice_tpu.train.checkpoint import load_checkpoint_header as jax_header
+    from everyvoice_tpu_torch.onchip import pretrained_overrides, write_pretrained_components
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
+
+    small = {"asr": {"input_dim": 80, "hidden_dim": 32, "n_token": 178, "n_layers": 1,
+                     "token_embedding_dim": 16},
+             "plbert": {"vocab_size": 178, "hidden_size": 32, "num_layers": 1, "num_heads": 2,
+                        "intermediate_size": 64, "embedding_size": 16,
+                        "max_position_embeddings": 512},
+             "wavlm": {"hidden_size": 32, "num_layers": 1, "num_heads": 2,
+                       "intermediate_size": 64, "conv_dim": (16,) * 7,
+                       "conv_kernel": (10, 3, 3, 3, 3, 2, 2), "conv_stride": (5, 2, 2, 2, 2, 2, 2),
+                       "num_buckets": 32, "max_distance": 80, "num_conv_pos_embeddings": 15,
+                       "num_conv_pos_embedding_groups": 4}}
+    paths = write_pretrained_components(tmp_path / "pretrained", torch.Generator().manual_seed(1),
+                                        **small)
+    staged = pretrained_overrides(paths) + [
+        "model.slm.hidden=32", "model.slm.nlayers=2", "model.slm.initial_channel=8",
+        "training.losses.joint_epoch=0", "training.OOD_min_length=10",
+        "training.logger.name=pretrained"]
+    monkeypatch.chdir(world["cwd"])
+    monkeypatch.delenv("EVERYVOICE_DEVICE", raising=False)
+    caplog.set_level("INFO", logger="everyvoice_tpu_torch.models.styletts2.train")
+    path = st2_world["configs"]["st2port"]
+    options = TINY["text-to-wav"] + staged
+    config = jax_load_config("text-to-wav", path, options)
+    lc = config.training.logger
+    version_dir = Path(lc.save_dir) / lc.name / lc.version
+    runs = {}
+    for n, mode in enumerate(("first", "second"), start=1):
+        assert cli.main(["train", "text-to-wav", str(path), "--mode", mode, "-a", "cpu",
+                         *[x for o in options for x in ("-c", o)]]) == 0
+        [ckpt] = version_dir.glob(f"*/checkpoints/stage-{n}-last.ckpt")
+        runs[mode] = ckpt.parents[1]
+    assert f"Loaded stage-1 checkpoint from {runs['first'] / 'checkpoints'}" in caplog.text
+    assert "SLM-adversarial training enabled" in caplog.text
+    tp = JaxTextProcessor(config.text)
+    data = SimpleNamespace(text_processor=tp, n_symbols=len(tp.symbols))
+    for mode, run in runs.items():
+        jt = JaxTrainer(config, data, data, lang2id={"default": 0},
+                        mesh=make_mesh(jax.devices("cpu")[:1]), run_dir=tmp_path / mode,
+                        mode=mode, compute_dtype="float32")
+        assert sorted(p.name for p in (run / "checkpoints").iterdir()) == [
+            jt.last_checkpoint_name]
+        header = jax_header(run / "checkpoints" / jt.last_checkpoint_name)
+        assert header["pretrained_components"] == jt._ckpt_extra()["pretrained_components"]
+        assert header["stage"] == mode and header["global_step"] == 2
+        ckpt = load_checkpoint(run / "checkpoints" / jt.last_checkpoint_name)
+        discriminators, opt = ckpt["state_dict"]["discriminators"], ckpt["optimizer_states"]
+        assert ("slm" in discriminators) == ("slm" in opt["disc"]["0"]["mu"]) == (mode == "second")
+        assert set(opt["gen"]["inner_states"]) == {"base", "bert", "ft"}
+    assert "SLM-adversarial OOD bank: " in caplog.text
+    shutil.rmtree(Path(lc.save_dir) / lc.name)  # about 2 GB of checkpoints
+
+
+@pytest.mark.parametrize("extra", [[], ["é", "ß", "ŋ̊", "7", "x̩"]],
+                         ids=["covered", "missing-symbols"])
+def test_check_pretrained_symbols_matches(world, port_cli, tmp_path, extra):
+    """The same report and exit code as the JAX CLI's: every symbol in the
+    frozen table, or the missing ones with the substitutions suggested."""
+    state = wizard_state(tmp_path, "symbols", world["rows"], world["wavs"])
+    state["datasets"][0]["symbols"] = {"characters": LETTERS + extra}
+    write_config_package(state, "yaml")
+    path = tmp_path / "symbols" / "config" / "everyvoice-text-to-wav.yaml"
+    want = jax_cli("check", "pretrained-symbols", path)
+    rc, out, _ = port_cli("check", "pretrained-symbols", path)
+    assert (rc, out) == (want.exit_code, want.output)
+    assert rc == (1 if extra else 0)
+
+
 def test_preprocess_refuses_a_huggingface_ood_source(st2_world, port_cli, tmp_path):
     """A HuggingFace OOD source needs the network: the ood step exits 1
     saying so, and names the local file to give instead."""
@@ -620,7 +706,7 @@ def test_help_loads_no_torch_and_lists_the_pipeline_first(tmp_path):
     verbs = [line.split()[0] for line in listing.splitlines()
              if line.startswith("    ") and not line.startswith("     ")]
     assert verbs == ["preprocess", "train", "synthesize", "check", "checkpoint", "evaluate",
-                     "export", "g2p"]
+                     "export", "fetch-pretrained", "g2p"]
 
 
 @pytest.mark.parametrize("verb", ["preprocess", "train", "train text-to-wav", "synthesize from-text",
@@ -649,12 +735,9 @@ def test_computing_verbs_need_the_card_or_the_cpu_switch(world, trained, port_cl
 def test_unported_flags_name_their_roadmap_item(world, port_cli, tmp_path):
     fs2 = config_path(world, "json", "text-to-spec")
     st2 = config_path(world, "json", "text-to-wav")
-    weights = tmp_path / "bst.t7"
-    weights.write_bytes(b"weights")
     cases = [
         (["preprocess", "text-to-spec", fs2, "--device-audio"], "The rest"),
-        (["train", "text-to-wav", st2, "-c", f"pretrained.f0.local_path={weights}"],
-         "StyleTTS2's pretrained components"),
+        (["fetch-pretrained", "text-to-wav", "--config-path", st2], "fetch-pretrained"),
         (["train", "text-to-spec", fs2, "-s", "fsdp"], "Parallelism"),
         (["train", "text-to-spec", fs2, "-d", "2"], "Parallelism"),
         (["train", "text-to-spec", fs2, "-n", "2"], "Parallelism"),

@@ -2,7 +2,8 @@
 plain PyTorch versions, the wrappers' refusals, one FastSpeech2 training
 step and one HiFiGAN GAN step in bfloat16 and in float32, the vocoder's
 re-fold after an optimizer step, a ResBlock2 generator, a StyleTTS2
-synthesis and a StyleTTS2 training step. Without a card they skip.
+synthesis, a StyleTTS2 training step, and a stage-2 step with the
+pretrained components and the SLM. Without a card they skip.
 
 This file imports nothing of JAX, so it also runs on a machine that has no
 JAX, without the repository's conftest (which imports it):
@@ -452,5 +453,89 @@ def test_styletts2_training_step_on_the_card(card, tmp_path, compute_dtype):
         losses = t.train_step(batch, draws.to(device), epoch=0)
         result[device] = {**{k: v.item() for k, v in losses.items()},
                           "grad_norm": t.grad_norm.item(), "disc_grad_norm": t.disc_grad_norm.item()}
+    for key, want in result["cpu"].items():
+        assert abs(result["cuda"][key] - want) <= 1e-3 * max(abs(want), 1e-12), key
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_styletts2_regime2_step_on_the_card(card, tmp_path, compute_dtype):
+    """One stage-2 StyleTTS2 step of a small model with all four pretrained
+    components (seeded files in the published formats, small widths) and
+    an out-of-domain bank, at the joint epoch: in float32 its losses and
+    both gradient norms within 1e-3 relative of the CPU's from the same
+    parameters and draws (dropout off); in bfloat16 (WavLM's bfloat16 copy)
+    finite losses with every SLM term, a moved generator and a WavLM left
+    as it was."""
+    from everyvoice_tpu_torch.config import apply_overrides, styletts2_config
+    from everyvoice_tpu_torch.models.layers import Dropout
+    from everyvoice_tpu_torch.models.styletts2.train import StyleTTS2Trainer
+    from everyvoice_tpu_torch.onchip import TEXTS, pretrained_overrides, write_pretrained_components
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.utils import write_filelist
+
+    paths = write_pretrained_components(
+        tmp_path / "pretrained", torch.Generator().manual_seed(0),
+        jdc={"channels": (8, 8, 16, 16), "lstm_hidden": 8},
+        asr={"input_dim": 80, "hidden_dim": 32, "n_token": 178, "n_layers": 1,
+             "token_embedding_dim": 16},
+        plbert={"vocab_size": 178, "hidden_size": 32, "num_layers": 2, "num_heads": 2,
+                "intermediate_size": 64, "embedding_size": 16, "max_position_embeddings": 64},
+        wavlm={"hidden_size": 32, "num_layers": 2, "num_heads": 2, "intermediate_size": 64,
+               "conv_dim": (16,) * 7, "conv_kernel": (10, 3, 3, 3, 3, 2, 2),
+               "conv_stride": (5, 2, 2, 2, 2, 2, 2), "num_buckets": 32, "max_distance": 80,
+               "num_conv_pos_embeddings": 15, "num_conv_pos_embedding_groups": 4})
+    (tmp_path / "pre" / "ood").mkdir(parents=True)
+    write_filelist([{"text": t} for t in TEXTS[:4]], tmp_path / "pre" / "ood" / "default.psv")
+    raw = {"contact": {"contact_name": "Card", "contact_email": "card@example.org"},
+           "model": {"hidden_dim": 32, "style_dim": 16, "max_dur": 20,
+                     "decoder": {"mpd_layers": [2], "msd_layers": 1},
+                     "slm": {"initial_channel": 8},
+                     "diffusion": {"transformer": {"num_layers": 1, "num_heads": 2,
+                                                   "head_features": 8}}},
+           "preprocessing": {"save_dir": str(tmp_path / "pre")},
+           "training": {"max_len": 64, "decoder_segment_frames": 16, "OOD_min_length": 10,
+                        "losses": {"tma_epoch": 1, "diff_epoch": 1, "joint_epoch": 1},
+                        "logger": {"save_dir": str(tmp_path), "name": "card"}},
+           "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}
+    config = styletts2_config(apply_overrides(raw, pretrained_overrides(paths)))
+
+    class Data:
+        text_processor = TextProcessor(config["text"])
+        n_symbols = len(text_processor.symbols)
+        level = "characters"
+        max_text_len = 12
+        items: list = []
+
+    def trainer(device):
+        t = StyleTTS2Trainer(config, Data(), Data(), {"default": 0}, run_dir=tmp_path / device,
+                             mode="second", compute_dtype=compute_dtype, device=device)
+        t.init_params(seed=0)
+        t.gen_opt_state = t.gen_opt.init(t.gen_params)
+        t.disc_opt_state = t.disc_opt.init(t.disc_params)
+        return t
+
+    if compute_dtype == "bfloat16":
+        t = trainer("cuda")
+        assert next(t.wavlm.parameters()).dtype == torch.bfloat16
+        wavlm = {n: p.clone() for n, p in t.wavlm.state_dict().items()}
+        before = t.model.text_encoder.embed.weight.detach().clone()
+        losses = t.train_step(_st2_batch("cuda"), epoch=1)
+        assert {"gen/slm", "gen/slm_ood", "disc/slm", "disc/slm_ood", "gen/s2s"} <= set(losses)
+        assert all(torch.isfinite(v) for v in losses.values())
+        assert not torch.equal(before, t.model.text_encoder.embed.weight)
+        assert all(torch.equal(p, wavlm[n]) for n, p in t.wavlm.state_dict().items())
+        return
+    result, draws = {}, None
+    for device in ("cuda", "cpu"):
+        t = trainer(device)
+        for module in t.model.modules():
+            if isinstance(module, Dropout):
+                module.p = 0.0
+        if draws is None:
+            draws = t.draw_step(_st2_batch("cpu"), torch.Generator().manual_seed(4))
+        losses = t.train_step(_st2_batch(device), draws.to(device), epoch=1)
+        result[device] = {**{k: v.item() for k, v in losses.items()},
+                          "grad_norm": t.grad_norm.item(), "disc_grad_norm": t.disc_grad_norm.item()}
+    assert "gen/slm_ood" in result["cpu"]
     for key, want in result["cpu"].items():
         assert abs(result["cuda"][key] - want) <= 1e-3 * max(abs(want), 1e-12), key

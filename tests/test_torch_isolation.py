@@ -17,7 +17,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "pydantic", "regex", "msgpack", "yaml", "PIL", "everyvoice_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "pydantic", "regex", "msgpack", "yaml", "PIL",
+             "everyvoice_tpu", "transformers", "safetensors")
 
 CHILD = """
 import importlib, json, pkgutil, sys, tempfile
@@ -112,10 +113,58 @@ with tempfile.TemporaryDirectory() as tmp:
                      "logger": {"save_dir": str(tmp / "logs"), "name": "st2"}},
     }, mode="first", device="cpu")
     st2_ckpts = sorted(p.name for p in st2_trainer.ckpt_dir.iterdir())
+
+    # StyleTTS2's pretrained components, read from their published formats
+    # (a HuggingFace directory's model.safetensors too), and stage 2 trained
+    # with all four
+    import struct
+    from everyvoice_tpu_torch.models.styletts2.slm import load_wavlm_params
+    from everyvoice_tpu_torch.onchip import (pretrained_overrides, published_wavlm_state,
+                                             write_pretrained_components)
+    wavlm = {"hidden_size": 16, "num_layers": 1, "num_heads": 2, "intermediate_size": 32,
+             "conv_dim": (8,) * 7, "conv_kernel": (10, 3, 3, 3, 3, 2, 2),
+             "conv_stride": (5, 2, 2, 2, 2, 2, 2), "num_buckets": 32, "max_distance": 80,
+             "num_conv_pos_embeddings": 15, "num_conv_pos_embedding_groups": 4}
+    paths = write_pretrained_components(
+        tmp / "pretrained", torch.Generator().manual_seed(0), wavlm=wavlm,
+        asr={"input_dim": 80, "hidden_dim": 16, "n_token": 178, "n_layers": 1,
+             "token_embedding_dim": 8},
+        plbert={"vocab_size": 178, "hidden_size": 16, "num_layers": 1, "num_heads": 2,
+                "intermediate_size": 32, "embedding_size": 8, "max_position_embeddings": 64},
+        jdc={"channels": (8, 8, 8, 8), "lstm_hidden": 8})
+    safe = tmp / "wavlm-safetensors"
+    safe.mkdir()
+    (safe / "config.json").write_text((paths["wavlm"] / "config.json").read_text())
+    tensors = {k: v.numpy().tobytes() for k, v in
+               published_wavlm_state(torch.Generator().manual_seed(1), wavlm).items()}
+    shapes = {k: list(v.shape) for k, v in
+              published_wavlm_state(torch.Generator().manual_seed(1), wavlm).items()}
+    header, offset = {}, 0
+    for k, raw in tensors.items():
+        header[k] = {"dtype": "F32", "shape": shapes[k], "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    (safe / "model.safetensors").write_bytes(struct.pack("<Q", len(head)) + head
+                                             + b"".join(tensors.values()))
+    safetensors_layers = load_wavlm_params(safe)[0]["num_layers"]
+    regime2 = train_text_to_wav({
+        **st2_raw,
+        "model": {**st2_raw["model"], "decoder": {"mpd_layers": [2], "msd_layers": 1},
+                  "slm": {"initial_channel": 4}},
+        "preprocessing": {"save_dir": str(tmp / "pre")},
+        "training": {"batch_size": 1, "max_steps": 1, "max_len": 16, "epochs_2nd": 1,
+                     "training_filelist": str(tmp / "pre" / "training_filelist.psv"),
+                     "validation_filelist": str(tmp / "pre" / "validation_filelist.psv"),
+                     "logger": {"save_dir": str(tmp / "logs"), "name": "regime2"}},
+    }, pretrained_overrides(paths), mode="second", device="cpu")
+    regime2_ckpts = sorted(p.name for p in regime2.ckpt_dir.iterdir())
+    regime2_slm = regime2.wavlm is not None and regime2.asr_geometry is not None
 roots = sorted({name.split(".")[0] for name in sys.modules})
 print(json.dumps({"roots": roots, "written": len(written), "specs": specs, "pfs": pfs,
                   "samples": [len(r["wav"]) for r in results], "steps": steps,
-                  "ckpts": ckpts, "st2_samples": st2_samples, "st2_ckpts": st2_ckpts}))
+                  "ckpts": ckpts, "st2_samples": st2_samples, "st2_ckpts": st2_ckpts,
+                  "safetensors_layers": safetensors_layers, "regime2_ckpts": regime2_ckpts,
+                  "regime2_slm": regime2_slm}))
 """
 
 
@@ -133,6 +182,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert report["steps"] == 2 and "last.ckpt" in report["ckpts"]
     assert 0 < report["st2_samples"] <= 16 * 256 and report["st2_samples"] % 256 == 0
     assert "stage-1-last.ckpt" in report["st2_ckpts"]
+    assert report["safetensors_layers"] == 1
+    assert "stage-2-last.ckpt" in report["regime2_ckpts"] and report["regime2_slm"]
     loaded = set(report["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 

@@ -441,25 +441,34 @@ def test_checkpoint_round_trips(ckpts):
 
 
 def test_an_asr_checkpoint_keeps_its_text_aligner(ckpts, tmp_path):
-    """The ASR aligner is training's: its subtree loads aside, untouched,
-    written back by ``torch_to_flax``; serving does not need it, nor the
+    """The ASR aligner is training's: an ``asr`` checkpoint's
+    ``text_aligner`` subtree loads into the model's ``ASRCNN``, untouched,
+    and ``torch_to_flax`` writes it back; serving does not need it, nor the
     TMA aligner it replaces."""
     from everyvoice_tpu.train.checkpoint import load_checkpoint
+    from everyvoice_tpu_torch.models.styletts2.asr import ASRCNN, convert_torch_asr_state
+    from everyvoice_tpu_torch.onchip import published_asr_state
 
     ckpt = load_checkpoint(ckpts["jax-written"])
     params = ckpt["state_dict"]["generator"]
-    aligner = {"cnn": {"kernel": np.arange(6, dtype=np.float32).reshape(2, 3)}}
+    geometry = {"input_dim": 80, "hidden_dim": 16, "n_token": 30, "n_layers": 1,
+                "token_embedding_dim": 8}
+    state = published_asr_state(torch.Generator().manual_seed(2), geometry)
+    aligner = convert_torch_asr_state({k: v.numpy() for k, v in state.items()}, n_layers=1)
     del params["params"]["tma_aligner"]
     params["params"]["text_aligner"] = aligner
     path = jax_save_checkpoint(tmp_path / "asr.ckpt", "StyleTTS2Module",
                                ckpt["hyper_parameters"]["config"], {"generator": params},
                                extra={"pretrained_components": {"plbert": None,
-                                                                "asr": {"n_token": 3}}})
+                                                                "asr": geometry}})
     pm, pcfg, ptp, _ = port_synth.load_styletts2_model(path, device="cpu")
-    assert not hasattr(pm, "tma_aligner")
-    assert pm.text_aligner_params["cnn"]["kernel"].tolist() == aligner["cnn"]["kernel"].tolist()
+    assert not hasattr(pm, "tma_aligner") and isinstance(pm.text_aligner, ASRCNN)
     back = torch_to_flax(pm.state_dict(), pm)["params"]
-    assert back["text_aligner"] is pm.text_aligner_params and "tma_aligner" not in back
+    assert "tma_aligner" not in back
+    flat = dict(jax.tree_util.tree_leaves_with_path(aligner))
+    for key, value in jax.tree_util.tree_leaves_with_path(back["text_aligner"]):
+        np.testing.assert_array_equal(value, flat[key], err_msg=str(key))
+    assert len(flat) == len(jax.tree.leaves(back["text_aligner"]))
     plain = port_synth.load_styletts2_model(ckpts["jax-written"], device="cpu")
     want = port_synth.synthesize_text(*plain[:3], TEXTS[0])
     np.testing.assert_array_equal(port_synth.synthesize_text(pm, pcfg, ptp, TEXTS[0]), want)

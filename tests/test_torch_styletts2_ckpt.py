@@ -3,9 +3,10 @@
 channels whatever the config says): each package's trainer resumes the
 other's last checkpoint of either stage (parameters and both optax
 states, after an update), the stage-1 checkpoint one package writes is the one the other's
-stage 2 starts from, the JAX serving synthesizes from a stage-2
-checkpoint the port's trainer wrote, and the port's trainer refuses
-pretrained components.
+stage 2 starts from, and the JAX serving synthesizes from a stage-2
+checkpoint the port's trainer wrote. The same with the pretrained
+components is ``test_torch_styletts2_pretrained.py``'s and
+``test_torch_styletts2_slm.py``'s.
 
 Tolerances: parameters and optimizer states after a load, exact; the JAX
 serving against the port's from the same checkpoint and draws, wavs 2e-4
@@ -221,24 +222,3 @@ def test_jax_serving_synthesizes_from_the_ports_checkpoint(stage2_ckpt):
     got = port_synth.synthesize_text(pm, pcfg, ptp, text, noise=noise)
     assert got.shape == want.shape and len(got) % HOP == 0
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
-
-
-def test_the_trainer_refuses_pretrained_components(tmp_path):
-    """A pretrained file the JAX trainer would load makes the port's
-    trainer raise, naming the ROADMAP item; a configured path that does not
-    exist falls back to the stand-in, as in the JAX trainer; the SLM's
-    weights count in stage 2 only."""
-    weights = tmp_path / "bst.t7"
-    weights.write_bytes(b"weights")
-    for section, field in (("f0", "local_path"), ("plbert", "local_checkpoint"),
-                           ("asr", "local_checkpoint")):
-        raw = {**_raw(tmp_path, section), "pretrained": {section: {field: str(weights)}}}
-        with pytest.raises(NotImplementedError, match="StyleTTS2's pretrained components"):
-            _port(raw, tmp_path / section, "first")
-        missing = {**_raw(tmp_path, section),
-                   "pretrained": {section: {field: str(tmp_path / "none")}}}
-        _port(missing, tmp_path / f"{section}-missing", "second")
-    slm = {**_raw(tmp_path, "slm"), "model": {**MODEL, "slm": {"model": str(tmp_path)}}}
-    _port(slm, tmp_path / "slm-first", "first")
-    with pytest.raises(NotImplementedError, match="model.slm.model"):
-        _port(slm, tmp_path / "slm-second", "second")
