@@ -130,7 +130,36 @@ Phases, any failure of which exits nonzero:
     float32 stage-2 step on the card against the CPU's, a step split
     (the ASR decoder loop, WavLM and the out-of-domain decode apart) and
     traced, and the trained checkpoint served;
-14. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+14. long-audio CTC segmentation at wav2vec2-base's geometry (768 wide, 12
+    layers, the 32 characters of wav2vec2-base-960h): a seeded model
+    directory in the HuggingFace layout (``onchip.write_wav2vec2_ctc``), a
+    seeded stereo recording of about 100 s at 22,050 Hz (six 20 s windows
+    at 16 kHz, the last padded) and a 12-line transcript; ``segment align``
+    and ``segment extract`` through ``cli.main`` with no device given; the
+    TextGrid (the lines in order, in non-decreasing intervals inside the
+    recording), the wavs (``int(end·sr) − int(start·sr)`` samples each) and
+    ``metadata.psv`` checked; the windowed scoring's load time, wall, audio
+    seconds per wall second and peak memory; its float32 log-probs on the
+    card against the CPU's (atol 5e-4, rtol 5e-3, the wav2vec2 golden's)
+    and the spans they give, equal or a tie that ``ctc_path_tie`` proves;
+    one 20 s window of the stable-layer-norm variant at wav2vec2-large's
+    geometry (1024 wide, 24 layers), card against CPU. Launches neither
+    kernel;
+15. the demo server: the FastSpeech2 app of phase 4's checkpoints with a
+    denylist and an output directory, served by ``make_server`` on a
+    thread: the page and ``/api/info``, an empty, a denied and a homograph
+    text refused with the JAX app's messages, one text answered (frames ×
+    hop samples), four texts posted at once (each within 1 LSB of the text
+    served alone), all five output formats written, every MRF stage of the
+    requests held to the plain version in bf16 (their launches are
+    ``mrf_stage``'s ``demo_launches``); the StyleTTS2 app of a seeded
+    full-width checkpoint with a named reference speaker, a request with 5
+    diffusion steps and seed 3 held to ``synthesize_text`` on the card
+    with that seed and speaker's styles (1 LSB); and ``python -m
+    everyvoice_tpu_torch demo`` as a process with no device given, which
+    must come up on the card within 120 s, refuse the empty and the denied
+    text and answer "hello world";
+16. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -2812,6 +2841,461 @@ def st2_pretrained_phase(root: Path, card: str) -> dict:
             "split": split, "served": served, "row": row}
 
 
+ALIGN_SECONDS = 101.37  # 22,050 Hz stereo; at 16 kHz six 20 s windows, the last padded
+ALIGN_LINES = 12
+ALIGN_ATOL, ALIGN_RTOL = 5e-4, 5e-3  # the wav2vec2 golden's tolerance
+
+
+def ctc_path_tie(spans_card, spans_cpu, lp_card, lp_cpu, targets) -> dict:
+    """Where the card's and the CPU's CTC alignments part (each found on its
+    own device's log-probabilities): the frames they part on, how far the
+    card's path scores below the CPU's own under the CPU's log-probabilities
+    (float64), and the most a tie allows: what the two devices'
+    log-probabilities differ by on the cells where the paths part, plus a
+    few float32 roundings of the path's score. A path's score is its labels'
+    log-probabilities over their spans and the blank's elsewhere."""
+    import numpy as np
+
+    def emissions(spans):
+        out = np.zeros(len(lp_cpu), np.int64)  # the blank
+        for i, start, end in spans:
+            out[start:end] = targets[i]
+        return out
+
+    frames = np.arange(len(lp_cpu))
+    e_card, e_cpu = emissions(spans_card), emissions(spans_cpu)
+    lp_card, lp_cpu = lp_card.astype(np.float64), lp_cpu.astype(np.float64)
+    own = float(lp_cpu[frames, e_cpu].sum())
+    gap = own - float(lp_cpu[frames, e_card].sum())
+    parted = e_card != e_cpu
+    delta = np.abs(lp_card - lp_cpu)
+    bound = float(delta[frames, e_card][parted].sum() + delta[frames, e_cpu][parted].sum()) \
+        + 8 * float(np.finfo(np.float32).eps) * abs(own)
+    return {"frames_parted": int(parted.sum()), "score_gap": gap, "tie_bound": bound}
+
+
+def aligner_phase(root: Path, card: str) -> dict:
+    """Long-audio CTC segmentation at wav2vec2-base's geometry (phase 14): a
+    seeded model directory in the HuggingFace layout, a seeded stereo
+    recording of about 100 s at 22,050 Hz (six 20 s windows at 16 kHz, the
+    last padded) and a 12-line transcript; ``segment align`` and ``segment
+    extract`` through ``cli.main`` with no device given, which must land on
+    the card; the TextGrid and the extracted wavs and filelist checked; the
+    load time, the scoring wall, audio seconds per wall second and peak
+    memory of the windowed scoring; the card's float32 log-probs against the
+    CPU's and the spans they give (equal, or a proven tie); and one 20 s
+    window of the stable-layer-norm variant at wav2vec2-large's geometry,
+    card against CPU. Launches neither kernel."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch import cli
+    from everyvoice_tpu_torch.dsp import read_wav
+    from everyvoice_tpu_torch.dsp.resample import resample
+    from everyvoice_tpu_torch.models.aligner import segment
+    from everyvoice_tpu_torch.models.aligner.wav2vec2 import (
+        WAV2VEC2_LARGE,
+        convert_torch_wav2vec2_state,
+        load_wav2vec2_ctc,
+        wav2vec2_from_flax,
+        window_plan,
+        windowed_log_probs,
+    )
+    from everyvoice_tpu_torch.onchip import (
+        published_wav2vec2_state,
+        write_long_recording,
+        write_wav2vec2_ctc,
+    )
+    from everyvoice_tpu_torch.ops.mel import log_mel
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+
+    t_phase = time.perf_counter()
+    work = root / "aligner"
+    gen = torch.Generator().manual_seed(14)
+    t0 = time.perf_counter()
+    model_dir = write_wav2vec2_ctc(work / "wav2vec2-base-960h", gen)
+    wav, transcript = write_long_recording(work, ALIGN_LINES, ALIGN_SECONDS, seed=14)
+    write_s = time.perf_counter() - t0
+    audio, sr = read_wav(wav)
+    lines = segment.read_transcript(transcript)
+    duration = audio.shape[1] / sr
+    if audio.shape[0] != 2 or len(lines) != ALIGN_LINES:
+        fail(f"the recording has {audio.shape[0]} channels, the transcript {len(lines)} lines")
+    kernel_counts = (mrf_stage.launches, log_mel.launches)
+
+    # the verbs, from another working directory, with no device given
+    env = os.environ.pop("EVERYVOICE_DEVICE", None)
+    err = io.StringIO()
+    grid, out_dir = work / "long.TextGrid", work / "segments"
+    walls = {}
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        with contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            rc_align = cli.main(["segment", "align", str(wav), str(transcript), "-o", str(grid),
+                                 "--acoustic-model", str(model_dir)])
+            walls["segment align"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rc_extract = cli.main(["segment", "extract", str(wav), str(grid), "-o", str(out_dir)])
+            walls["segment extract"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        if env is not None:
+            os.environ["EVERYVOICE_DEVICE"] = env
+    devices = [line for line in err.getvalue().splitlines() if line.startswith("device: ")]
+    if rc_align != 0 or rc_extract != 0 or devices != ["device: cuda"] * 2:
+        fail(f"segment align/extract: exit {rc_align}/{rc_extract}, {devices}\n"
+             f"{err.getvalue()[-2000:]}")
+
+    # the TextGrid: the transcript's lines, in order, in non-decreasing
+    # intervals inside the recording
+    parsed = segment.parse_textgrid(grid)
+    if [text for text, _, _ in parsed] != lines:
+        fail(f"the TextGrid's intervals {[t for t, _, _ in parsed]} are not the lines {lines}")
+    bounds = [x for _, start, end in parsed for x in (start, end)]
+    if bounds[0] < 0 or bounds[-1] > duration + 1e-6 or any(
+            a > b for a, b in zip(bounds, bounds[1:])):
+        fail(f"the TextGrid's intervals are not ordered inside {duration} s: {parsed}")
+    # the extracted wavs and filelist
+    rows = []
+    for i, (text, start, end) in enumerate(parsed):
+        clip, clip_sr = read_wav(out_dir / "wavs" / f"segment-{i:05d}.wav")
+        if clip_sr != sr or clip.shape != (1, int(end * sr) - int(start * sr)):
+            fail(f"segment {i}: {clip.shape} at {clip_sr} Hz for [{start}, {end}] s")
+        rows.append(f"segment-{i:05d}|{text}")
+    listed = (out_dir / "metadata.psv").read_text(encoding="utf8").splitlines()
+    if listed != ["basename|characters"] + rows or len(list((out_dir / "wavs").iterdir())) != len(rows):
+        fail(f"segment extract wrote {listed[:3]}... for {len(rows)} intervals")
+
+    # the windowed scoring on the card, timed apart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, vocab, do_normalize = load_wav2vec2_ctc(model_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mono = audio.mean(axis=0)
+    audio_16k = resample(torch.from_numpy(mono).cuda(), sr, 16000).cpu().numpy()
+    normalized = segment.normalize_utterance(audio_16k) if do_normalize else audio_16k
+    win, starts = window_plan(model, len(audio_16k))
+    windows = len(starts)
+    if len(audio_16k) % model.total_stride == 0 or windows < 5 or starts[-1] + win == len(audio_16k):
+        fail(f"{len(audio_16k)} samples at 16 kHz in {windows} windows: the last does not pad")
+    windowed_log_probs(model, normalized[:win])  # warm-up: cuDNN and cuBLAS start-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lp_card = windowed_log_probs(model, normalized)
+    score_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if lp_card.shape != (model.output_frames(len(audio_16k)), 32) or not np.isfinite(lp_card).all():
+        fail(f"windowed log-probs of {lp_card.shape}, or not finite")
+    del model
+
+    # float32 on the card against the CPU, and the spans they give
+    cpu_model, _, _ = load_wav2vec2_ctc(model_dir, device="cpu")
+    lp_cpu = windowed_log_probs(cpu_model, normalized)
+    del cpu_model
+    excess = float((np.abs(lp_card - lp_cpu) - (ALIGN_ATOL + ALIGN_RTOL * np.abs(lp_cpu))).max())
+    targets, _ = segment.line_targets(lines, vocab)
+    spans_card = segment.ctc_forced_alignment(lp_card, targets)
+    spans_cpu = segment.ctc_forced_alignment(lp_cpu, targets)
+    tie = None
+    if spans_card != spans_cpu:
+        tie = ctc_path_tie(spans_card, spans_cpu, lp_card, lp_cpu, targets)
+        print("aligner spans parted " + json.dumps(tie), flush=True)
+        if not tie["score_gap"] <= tie["tie_bound"]:
+            fail(f"the card's CTC path scores {tie['score_gap']} below the CPU's, more than a "
+                 f"tie allows ({tie['tie_bound']})")
+
+    # one window of the stable-layer-norm variant at wav2vec2-large's geometry
+    geometry = dict(WAV2VEC2_LARGE)
+    state = published_wav2vec2_state(torch.Generator().manual_seed(15), geometry)
+    large = wav2vec2_from_flax(geometry, convert_torch_wav2vec2_state(
+        state, geometry["num_layers"], geometry["feat_extract_norm"],
+        geometry["do_stable_layer_norm"]))
+    del state
+    window = normalized[:win]
+    large_cpu = windowed_log_probs(large, window)
+    large = large.cuda()
+    large_card = windowed_log_probs(large, window)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    windowed_log_probs(large, window)
+    large_window_s = time.perf_counter() - t0
+    del large
+    large_excess = float((np.abs(large_card - large_cpu)
+                          - (ALIGN_ATOL + ALIGN_RTOL * np.abs(large_cpu))).max())
+    if (mrf_stage.launches, log_mel.launches) != kernel_counts:
+        fail("the aligner launched a kernel it does not use")
+
+    row = {"audio_s": duration, "samples_16k": len(audio_16k), "windows": windows,
+           "frames": len(lp_card), "lines": len(lines), "write_s": write_s, "walls_s": walls,
+           "load_s": load_s, "score_s": score_s, "audio_s_per_s": duration / score_s,
+           "peak_mib": peak_mib,
+           "card_vs_cpu_max_abs": float(np.abs(lp_card - lp_cpu).max()),
+           "card_vs_cpu_excess": excess, "spans_equal": spans_card == spans_cpu, "tie": tie,
+           "large_window_s": large_window_s,
+           "large_card_vs_cpu_max_abs": float(np.abs(large_card - large_cpu).max()),
+           "large_card_vs_cpu_excess": large_excess,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    print("aligner " + json.dumps(row), flush=True)
+    if excess > 0 or large_excess > 0:
+        fail(f"aligner float32 card vs CPU outside atol {ALIGN_ATOL}, rtol {ALIGN_RTOL}: "
+             f"base {row['card_vs_cpu_max_abs']}, large {row['large_card_vs_cpu_max_abs']}")
+    return row
+
+
+DEMO_DENIED = "forbidden"
+
+
+def wav_samples(blob: bytes):
+    """The int16 samples of a RIFF wav's bytes."""
+    import io
+    import wave
+
+    import numpy as np
+
+    if blob[:4] != b"RIFF":
+        fail("not a RIFF wav")
+    with wave.open(io.BytesIO(blob)) as wf:
+        return np.frombuffer(wf.readframes(wf.getnframes()), "<i2").astype(np.int64)
+
+
+def answer_samples(body: dict):
+    """The int16 samples of a demo answer's base64 wav."""
+    import base64
+
+    return wav_samples(base64.b64decode(body["wav_base64"]))
+
+
+def http(url: str, payload: dict | None = None, timeout: float = 300) -> tuple:
+    """(status, body) of a GET, or of a JSON POST of ``payload``; JSON
+    bodies decoded."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, body, kind = resp.status, resp.read(), resp.headers.get("Content-Type")
+    except urllib.error.HTTPError as e:
+        status, body, kind = e.code, e.read(), e.headers.get("Content-Type")
+    return status, json.loads(body) if kind == "application/json" else body
+
+
+def check_refusals(base: str, what: str) -> None:
+    """An empty text, a denied word and a homograph of it: 400, with the
+    JAX app's messages."""
+    for text, error in ((" ", "Please enter some text to synthesize."),
+                        (f"this is {DEMO_DENIED.title()} speech",
+                         "Oops, that word is not allowed to be synthesized."),
+                        ("ｆｏｒｂｉｄｄｅｎ", "Oops, that word is not allowed to be synthesized.")):
+        status, body = http(base + "/api/synthesize", {"text": text})
+        if status != 400 or body != {"error": error}:
+            fail(f"{what}: {text!r} answered {status} {body}")
+
+
+def fs2_demo_requests(app, base: str, frames: int, walls: dict | None = None) -> None:
+    """The FastSpeech2 demo's requests, each answer checked: the page and
+    ``/api/info``, the refusals, a warm-up, one text (``frames`` × hop
+    samples), four texts one at a time and then posted at once (each within
+    1 LSB of the text served alone), and one text into all five output
+    formats. ``walls`` gets the request walls, where given."""
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.demo.app import OUTPUT_FORMAT_CHOICES
+    from everyvoice_tpu_torch.onchip import TEXTS
+
+    hop = app.synthesizer._samples_per_frame()
+    status, page = http(base + "/")
+    if status != 200 or page.decode("utf8") != app.render_page():
+        fail(f"GET / answered {status}")
+    status, info = http(base + "/api/info")
+    if status != 200 or info != {"languages": ["default"], "speakers": ["default"],
+                                 "model": "FastSpeech2"}:
+        fail(f"GET /api/info answered {status} {info}")
+    check_refusals(base, "the demo")
+    http(base + "/api/synthesize", {"text": TEXTS[2]})  # warm-up
+    timed = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status, body = http(base + "/api/synthesize", {"text": TEXTS[0]})
+    timed["1 text"] = time.perf_counter() - t0
+    if status != 200 or len(answer_samples(body)) != frames * hop:
+        fail(f"one text answered {status}, not {frames} frames of {hop} samples")
+    texts = TEXTS[4:8]
+    t0 = time.perf_counter()
+    alone = [http(base + "/api/synthesize", {"text": t}) for t in texts]
+    timed["4 texts one at a time"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(texts)) as pool:
+        answers = list(pool.map(lambda t: http(base + "/api/synthesize", {"text": t}), texts))
+    timed["4 texts at once"] = time.perf_counter() - t0
+    for text, (status, body), (status_alone, body_alone) in zip(texts, answers, alone):
+        if status != 200 or status_alone != 200:
+            fail(f"{text!r} answered {status} served concurrently, {status_alone} alone")
+        got, want = answer_samples(body), answer_samples(body_alone)
+        if got.shape != want.shape or np.abs(got - want).max() > 1:
+            fail(f"{text!r} served concurrently is not the text served alone")
+    status, body = http(base + "/api/synthesize", {"text": TEXTS[1],
+                                                  "output_formats": list(OUTPUT_FORMAT_CHOICES)})
+    written = sorted(Path(f).relative_to(app.output_dir).parts[0] for f in body.get("files", []))
+    if status != 200 or written != ["readalongs", "readalongs", "synthesized_spec", "textgrids",
+                                    "wav"]:
+        fail(f"all five output formats: {status}, wrote {written}")
+    if walls is not None:
+        walls.update(timed)
+
+
+def demo_phase(root: Path, fs2_path: Path, voc_path: Path, card: str) -> dict:
+    """The demo server (phase 15): the FastSpeech2 app from phase 4's seeded
+    full-width checkpoints with a denylist and an output directory, served
+    by ``make_server`` on a thread, answers ``fs2_demo_requests`` (timed;
+    its ``mrf_stage`` launches are the phase's), then the same requests
+    again with every MRF stage held to the plain version in bf16. Then the
+    StyleTTS2 app with a named reference speaker, one request held to
+    ``synthesize_text`` with the same seed and styles; and ``python -m
+    everyvoice_tpu_torch demo`` as a process with no device given."""
+    import socket
+    import subprocess
+    import threading
+
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch.demo.app import create_demo_app_auto
+    from everyvoice_tpu_torch.dsp import write_wav
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.models.styletts2.synthesize import (
+        load_reference_style,
+        synthesize_text,
+    )
+    from everyvoice_tpu_torch.onchip import TEXTS, write_corpus, write_styletts2_checkpoint
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+
+    t_phase = time.perf_counter()
+    work = root / "demo"
+    work.mkdir(parents=True, exist_ok=True)
+    denylist = work / "denylist.txt"
+    denylist.write_text(DEMO_DENIED + "\n", encoding="utf8")
+    walls = {}
+
+    app = create_demo_app_auto(fs2_path, vocoder_path=voc_path, denylist=denylist,
+                               output_dir=work / "out")
+    synth = app.synthesizer
+    if synth.device.type != "cuda" or synth.compute_dtype != "bfloat16":
+        fail(f"the demo's Synthesizer resolved to {synth.compute_dtype} on {synth.device}")
+    hop = synth._samples_per_frame()
+    frames = synth.synthesize([TEXTS[0]])[0]["mel"].shape[0]  # what one text's answer holds
+    server = app.make_server()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://%s:%d" % server.server_address
+    stages: dict = {}
+    try:
+        mrf_stage.launches = 0
+        fs2_demo_requests(app, base, frames, walls)
+        demo_launches = mrf_stage.launches
+        hifigan.mrf_stage = checked_mrf_stages(stages)
+        fs2_demo_requests(app, base, frames)
+    finally:
+        server.shutdown()
+        hifigan.mrf_stage = mrf_stage
+    rows = [stages[k] for k in sorted(stages)]
+    for row in rows:
+        print("demo stage " + json.dumps(row), flush=True)
+    if demo_launches == 0 or sum(r["calls"] for r in rows) != demo_launches:
+        fail(f"{demo_launches} mrf_stage launches in the demo's requests, "
+             f"{sum(r['calls'] for r in rows)} held to the plain version on them again")
+    if any(r["dtype"] != "bfloat16" for r in rows):
+        fail(f"an MRF stage of the demo ran in {[r['dtype'] for r in rows]}")
+    del app, synth
+
+    # StyleTTS2 with a named reference speaker
+    st2_ckpt = write_styletts2_checkpoint(work, torch.Generator().manual_seed(15))
+    _, wavs, _ = write_corpus(work / "corpus", 1, seed=15)
+    reference = next(wavs.glob("*.wav"))
+    st2_app = create_demo_app_auto(st2_ckpt, ref_speakers={"Reader": reference},
+                                   denylist=denylist)
+    server = st2_app.make_server()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://%s:%d" % server.server_address
+    payload = {"text": TEXTS[0], "speaker": "Reader", "diffusion_steps": 5, "seed": 3}
+    try:
+        check_refusals(base, "the StyleTTS2 demo")
+        http(base + "/api/synthesize", payload)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        status, body = http(base + "/api/synthesize", payload)
+        walls["StyleTTS2 1 text"] = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+    styles = load_reference_style(st2_app.model, reference, st2_app.config)
+    if not all(np.array_equal(a, b) for a, b in zip(styles, st2_app.ref_styles["Reader"])):
+        fail("the StyleTTS2 demo's reference styles are not load_reference_style's")
+    direct = synthesize_text(st2_app.model, st2_app.config, st2_app.text_processor, TEXTS[0],
+                             ref_styles=styles, diffusion_steps=5, seed=3)
+    write_wav(work / "direct.wav", direct, st2_app.config["preprocessing"]["audio"]
+              ["output_sampling_rate"])
+    want = wav_samples((work / "direct.wav").read_bytes())
+    got = answer_samples(body) if status == 200 else None
+    if got is None or got.shape != want.shape or np.abs(got - want).max() > 1:
+        fail(f"the StyleTTS2 demo answered {status}, not synthesize_text with seed 3")
+    del st2_app
+
+    # the demo verb as a process, with no device given
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "EVERYVOICE_DEVICE"}
+    env["PYTHONPATH"] = str(ROOT)
+    log = work / "demo-process.log"
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "everyvoice_tpu_torch", "demo", str(fs2_path),
+             "--vocoder-path", str(voc_path), "--port", str(port), "--server-name", "127.0.0.1",
+             "--denylist", str(denylist)], cwd=work, env=env, stdout=out, stderr=out)
+        try:
+            up = False
+            while not up and proc.poll() is None and time.perf_counter() - t0 < 120:
+                try:
+                    up = http(base + "/", timeout=5)[0] == 200
+                except OSError:
+                    time.sleep(0.25)
+            if not up:
+                fail(f"the demo process did not come up in 120 s (exit {proc.poll()}):\n"
+                     f"{log.read_text()[-2000:]}")
+            walls["process up"] = time.perf_counter() - t0
+            check_refusals(base, "the demo process")
+            status, body = http(base + "/api/synthesize", {"text": "hello world"})
+            n = len(answer_samples(body)) if status == 200 else 0
+            if n == 0 or n % hop:
+                fail(f"the demo process answered {status} to hello world")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    devices = [line for line in log.read_text().splitlines() if line.startswith("device: ")]
+    if devices != ["device: cuda"]:
+        fail(f"the demo process ran on {devices}:\n{log.read_text()[-2000:]}")
+
+    row = {"walls_s": walls, "mrf_launches": demo_launches, "stages": len(rows),
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    print("demo " + json.dumps(row), flush=True)
+    return {"mrf_launches": demo_launches, "stages": rows, "row": row}
+
+
 def timed_build(name: str) -> tuple:
     from everyvoice_tpu_torch.ops import _build
 
@@ -2877,6 +3361,8 @@ def main() -> int:
         styletts2_phase(tmp, card)
         st2_trained = st2_training_phase(tmp, card)
         st2_pretrained = st2_pretrained_phase(tmp, card)
+        aligner_phase(tmp, card)
+        demo = demo_phase(tmp, fs2_path, voc_path, card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -2886,7 +3372,7 @@ def main() -> int:
         "replaces": "everyvoice_tpu/ops/mrf_pallas.py:137",
         "launches": (served["launches"] + training_launches + vocoder["launches"]
                      + vocoder["serving_launches"] + phone["mrf_launches"]
-                     + cli_run["mrf_launches"]),
+                     + cli_run["mrf_launches"] + demo["mrf_launches"]),
         "serving_launches": served["launches"],
         "training_launches": training_launches,
         "vocoder_training_launches": vocoder["launches"],
@@ -2895,10 +3381,12 @@ def main() -> int:
         "cli_launches": cli_run["mrf_launches"],
         "styletts2_training_launches": st2_trained["mrf_launches"],
         "styletts2_pretrained_launches": st2_pretrained["mrf_launches"],
+        "demo_launches": demo["mrf_launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + training_stages
-                           + vocoder["stages"] + phone["stages"] + cli_run["stages"]),
+                           + vocoder["stages"] + phone["stages"] + cli_run["stages"]
+                           + demo["stages"]),
         "ms": sum(r["kernel_ms"] for r in bf16),
         "plain_ms": sum(r["plain_ms"] for r in bf16),
         "bound_ms": sum(r["bound_ms"] for r in bf16),

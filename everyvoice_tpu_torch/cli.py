@@ -7,15 +7,19 @@ with the same spellings, defaults and exit codes, on ``argparse``.
     python -m everyvoice_tpu_torch train text-to-wav config/everyvoice-text-to-wav.yaml --mode first
     python -m everyvoice_tpu_torch synthesize from-text last.ckpt -t "Hello." --vocoder-path v.ckpt
     python -m everyvoice_tpu_torch synthesize text-to-wav styletts2.ckpt -t "Hello." -r ref.wav
+    python -m everyvoice_tpu_torch demo last.ckpt --vocoder-path v.ckpt --port 7860
+    python -m everyvoice_tpu_torch segment align long.wav transcript.txt --acoustic-model w2v2/
+    python -m everyvoice_tpu_torch segment extract long.wav alignment.TextGrid -o segments
 
 Config files are the JAX package's YAML or JSON project files
 (``config_files.load_config_from_path``); ``-c key.path=value`` overrides
 them. Checkpoints are EVTP files that either package reads.
 
 Every verb that computes runs on the CUDA card and fails without one.
-``EVERYVOICE_DEVICE=cpu`` puts every verb on the CPU; ``train``'s
-``-a cpu`` does so for training. Flags that ask for what the port does not
-have yet exit non-zero naming the ``ROADMAP.md`` item that brings it.
+``EVERYVOICE_DEVICE=cpu`` puts every verb on the CPU; ``train``'s and
+``demo``'s ``-a cpu`` does so for that verb. Flags that ask for what the
+port does not have yet exit non-zero naming the ``ROADMAP.md`` item that
+brings it.
 ``--help`` imports no torch: the heavy imports sit in the verbs' bodies.
 """
 
@@ -183,10 +187,18 @@ def _ood_lines_from_raw(raw_lines: list) -> list:
     return [line.strip() for line in raw_lines if line.strip()]
 
 
-def _train_device(args):
-    if args.accelerator == "tpu":
+def _accelerator(accelerator: str):
+    """The device name ``-a/--accelerator`` asks for: cpu the CPU, gpu the
+    card, auto the card unless ``EVERYVOICE_DEVICE`` says otherwise; tpu is
+    an error."""
+    if accelerator == "tpu":
         raise CLIError("--accelerator tpu: the PyTorch package runs on a CUDA card "
                        "(auto or gpu) or on the CPU (cpu)")
+    return {"cpu": "cpu", "gpu": "cuda"}.get(accelerator)
+
+
+def _train_device(args):
+    name = _accelerator(args.accelerator)
     if args.strategy != "ddp":
         raise not_ported(f"--strategy {args.strategy}", "parallelism")
     if args.devices != "auto":
@@ -198,8 +210,7 @@ def _train_device(args):
             raise not_ported(f"--devices {devices}", "parallelism")
     if args.nodes > 1:
         raise not_ported(f"--nodes {args.nodes}", "parallelism")
-    return _device("cpu" if args.accelerator == "cpu"
-                   else "cuda" if args.accelerator == "gpu" else None)
+    return _device(name)
 
 
 def train(args) -> int:
@@ -499,6 +510,65 @@ def evaluate(args) -> int:
     return 0
 
 
+def demo(args) -> int:
+    if args.share:
+        raise CLIError("--share is not supported: there is no tunnel service here. Bind a "
+                       "public interface with --server-name 0.0.0.0 and expose the port instead.")
+    if args.allowlist and args.denylist:
+        raise CLIError("Provide either --allowlist or --denylist, not both.")
+    device = _device(_accelerator(args.accelerator))
+    from everyvoice_tpu_torch.demo.app import create_demo_app_auto, parse_ref_speakers
+
+    ui_labels = None
+    if args.ui_config:
+        try:
+            ui_labels = json.loads(Path(args.ui_config).read_text(encoding="utf8"))
+        except json.JSONDecodeError as e:
+            raise CLIError(f"--ui-config {args.ui_config} is not valid JSON: {e}") from None
+        if not isinstance(ui_labels, dict):
+            raise CLIError("--ui-config must contain a JSON object of label overrides")
+    try:
+        app = create_demo_app_auto(
+            args.model_path, vocoder_path=args.vocoder_path, ref_audio_dir=args.ref_audio_dir,
+            allowlist=args.allowlist, denylist=args.denylist, ui_labels=ui_labels,
+            speakers=args.speakers or None, languages=args.languages or None,
+            output_formats=args.output_formats or None, output_dir=args.output_dir,
+            ref_speakers=parse_ref_speakers(args.ref_speakers),
+            default_reference=args.reference, device=device,
+        )
+    except ValueError as e:
+        raise CLIError(str(e)) from None
+    print(f"Serving demo at http://{args.server_name}:{args.port}", flush=True)
+    app.serve(host=args.server_name, port=args.port)
+    return 0
+
+
+def segment_align(args) -> int:
+    from everyvoice_tpu_torch.models.aligner.segment import align_long_audio
+
+    device = _device()
+    try:
+        align_long_audio(args.audio, args.transcript, args.output, device=device,
+                         acoustic_model=str(args.acoustic_model) if args.acoustic_model else None)
+    except (RuntimeError, FileNotFoundError) as e:
+        raise CLIError(str(e)) from None
+    print(f"Wrote {args.output}")
+    return 0
+
+
+def segment_extract(args) -> int:
+    from everyvoice_tpu_torch.models.aligner.segment import extract_segments, parse_textgrid
+
+    _device()  # the cutting is host work; the segment verbs take the device rule alike
+    segments = parse_textgrid(args.textgrid)
+    if not segments:
+        raise CLIError(f"No non-empty intervals found in {args.textgrid}")
+    rows = extract_segments(args.audio, segments, args.output_dir, prefix=args.prefix)
+    print(f"Wrote {len(rows)} segments to {args.output_dir}/wavs and "
+          f"{args.output_dir}/metadata.psv")
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # the parser
 
@@ -673,6 +743,46 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("output_path", type=Path)
     k.set_defaults(run=checkpoint_rename_speaker)
 
+    p = verbs.add_parser("demo", help="Serve an interactive synthesis demo over HTTP (the model "
+                         "type is read from the checkpoint).")
+    p.add_argument("model_path", type=_existing)
+    p.add_argument("-V", "--vocoder", "--vocoder-path", dest="vocoder_path", type=_existing,
+                   default=None, help="[FastSpeech2] Trained vocoder checkpoint; required when "
+                   "MODEL_PATH is a FastSpeech2 model.")
+    p.add_argument("-s", "--speaker", dest="speakers", action="append", default=[],
+                   help="[FastSpeech2] Speaker to expose (repeat; default: every speaker).")
+    p.add_argument("-l", "--language", dest="languages", action="append", default=[],
+                   help="Language to expose (repeat; default: every language).")
+    p.add_argument("-O", "--output-format", dest="output_formats", action="append", default=[],
+                   choices=("all",) + OUTPUT_TYPES,
+                   help="[FastSpeech2] Output format to expose (repeat; default: all).")
+    p.add_argument("-o", "--output-dir", type=Path, default=Path("synthesis_output"),
+                   help="Directory where the demo writes synthesized files.")
+    p.add_argument("-R", "--ref-speaker", dest="ref_speakers", action="append", default=[],
+                   help="[StyleTTS2] Named reference speaker as 'Display "
+                   "Name=path/to/audio.wav' (repeat); styles are precomputed at startup.")
+    p.add_argument("-r", "--reference", type=_existing, default=None,
+                   help="[StyleTTS2] Default reference audio that sets the initial style.")
+    p.add_argument("-p", "--port", default=7860, type=int)
+    p.add_argument("-n", "--server-name", default="0.0.0.0",
+                   help="Host/IP address to bind the demo server to.")
+    p.add_argument("-a", "--accelerator", default="auto", choices=("auto", "tpu", "cpu", "gpu"),
+                   help="auto and gpu: the CUDA card; cpu: the CPU")
+    p.add_argument("--share", action="store_true",
+                   help="(Unsupported) there is no tunnel service.")
+    p.add_argument("--allowlist", type=Path, default=None,
+                   help="Text file of allowed words (one per line); everything else is "
+                   "rejected. Mutually exclusive with --denylist.")
+    p.add_argument("--denylist", type=Path, default=None,
+                   help="Text file of disallowed words (one per line).")
+    p.add_argument("--ref-audio-dir", type=Path, default=None,
+                   help="[StyleTTS2] Directory of reference speaker wavs (each *.wav becomes "
+                   "a named speaker).")
+    p.add_argument("--ui-config", type=_existing, default=None,
+                   help="JSON with UI label overrides; 'speakers'/'languages' entries restrict "
+                   "the dropdowns to their keys and rename them to their values.")
+    p.set_defaults(run=demo)
+
     p = verbs.add_parser("evaluate", help="Objective evaluation of synthesized wavs.")
     p.add_argument("wav_dir", metavar="WAV_DIR_OR_FILE", nargs="?", type=_existing, default=None)
     p.add_argument("-f", "--audio-file", type=_existing, default=None)
@@ -702,6 +812,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("lang_id")
     p.add_argument("text")
     p.set_defaults(run=g2p)
+
+    p = verbs.add_parser("segment", help="Align and segment long audio with a CTC aligner.")
+    kinds = p.add_subparsers(dest="kind", metavar="ACTION", required=True)
+    k = kinds.add_parser("align", help="CTC-align a transcript against long audio, producing a "
+                         "TextGrid.")
+    k.add_argument("audio", type=_existing)
+    k.add_argument("transcript", type=_existing)
+    k.add_argument("-o", "--output", type=Path, default=Path("alignment.TextGrid"))
+    k.add_argument("--acoustic-model", type=_existing, default=None,
+                   help="Locally staged wav2vec2-CTC model directory (default: "
+                   "$EVERYVOICE_WAV2VEC2_PATH), scored on the card.")
+    k.set_defaults(run=segment_align)
+    k = kinds.add_parser("extract", help="Cut a TextGrid's intervals out of long audio into "
+                         "per-segment wavs plus a metadata filelist.")
+    k.add_argument("audio", type=_existing)
+    k.add_argument("textgrid", type=_existing)
+    k.add_argument("-o", "--output-dir", type=Path, default=Path("segments"))
+    k.add_argument("--prefix", default="segment")
+    k.set_defaults(run=segment_extract)
     return parser
 
 

@@ -48,7 +48,8 @@ on; the optimizer moments map through the same tables. The frozen
 pretrained networks, which no checkpoint holds, map too: the JDC pitch
 network (its BiLSTM's one flax bias per direction is torch's input bias,
 the hidden bias zero) and WavLM, each from the flax tree its loader
-converts the published file into.
+converts the published file into, and the aligner's wav2vec2-CTC from the
+tree ``convert_torch_wav2vec2_state`` makes of a HuggingFace directory.
 
 HiFiGAN's generator maps to ``{"params": ...}`` (``ResBlock1_j`` or
 ``ResBlock2_j``; the post conv or the iSTFT head as ``Conv_1``), its
@@ -64,6 +65,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from everyvoice_tpu_torch.models.aligner.wav2vec2 import Wav2Vec2CTC
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import (
     HiFiGANDiscriminators,
@@ -442,6 +444,28 @@ def _wavlm(fpath, t, wavlm: WavLM) -> list:
     return out
 
 
+def _wav2vec2(fpath, model: Wav2Vec2CTC) -> list:
+    out = []
+    for i in range(model.n_convs):
+        conv = _conv(fpath + (f"conv{i}",), f"conv{i}")
+        out += conv if model.conv_bias else conv[:1]  # the kernel alone without conv_bias
+        if model.feat_extract_norm == "layer":
+            out += _norm(fpath + (f"conv{i}_norm",), f"conv{i}_norm")
+    if model.feat_extract_norm == "group":
+        out += _norm(fpath + ("conv0_norm",), "conv0_norm")
+    out += _norm(fpath + ("fp_norm",), "fp_norm") + _dense(fpath + ("fp_proj",), "fp_proj")
+    out += _conv(fpath + ("pos_conv",), "pos_conv") + _norm(fpath + ("enc_norm",), "enc_norm")
+    for i in range(model.num_layers):
+        f, layer = fpath + (f"layer{i}",), f"layer{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out += _dense(f + ("attention", name), f"{layer}.attention.{name}")
+        out += _norm(f + ("layer_norm",), f"{layer}.layer_norm")
+        out += _dense(f + ("intermediate_dense",), f"{layer}.intermediate_dense")
+        out += _dense(f + ("output_dense",), f"{layer}.output_dense")
+        out += _norm(f + ("final_layer_norm",), f"{layer}.final_layer_norm")
+    return out + _dense(fpath + ("lm_head",), "lm_head")
+
+
 def _slm_head(fpath, t) -> list:
     return [row for name in ("pre", "conv0", "conv1", "post")
             for row in _conv(fpath + (name,), f"{t}{name}")]
@@ -527,6 +551,8 @@ def _table(model) -> list:
         return _wavlm(p, "", model)
     if isinstance(model, SLMDiscriminator):
         return _slm_head(p, "")
+    if isinstance(model, Wav2Vec2CTC):
+        return _wav2vec2(p, model)
     if isinstance(model, JDCNet):
         return _jdc(p)
     if isinstance(model, HiFiGANGenerator):

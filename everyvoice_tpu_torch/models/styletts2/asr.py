@@ -41,8 +41,8 @@ from everyvoice_tpu_torch.models.styletts2.plbert import (
     read_model_params,
     remap_rows,
     symbol_row_map,
-    to_numpy,
 )
+from everyvoice_tpu_torch.utils.hf_weights import to_numpy
 
 # everyvoice/styletts2-asr-aligner config.yml model_params.
 ASR_GEOMETRY = dict(input_dim=80, hidden_dim=256, n_token=178, n_layers=6,

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from everyvoice_tpu_torch.models.styletts2.plbert import load_torch_or_npz_state, to_numpy
+from everyvoice_tpu_torch.models.styletts2.plbert import load_torch_or_npz_state
+from everyvoice_tpu_torch.utils.hf_weights import to_numpy
 
 JDC_CHANNELS = (64, 128, 192, 256)
 JDC_LSTM_HIDDEN = 256

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from everyvoice_tpu_torch.utils.hf_weights import to_numpy
+
 logger = logging.getLogger(__name__)
 
 PLBERT_NORM_EPS = 1e-12
@@ -105,10 +107,6 @@ class PLBERT(nn.Module):
 
 # ---------------------------------------------------------------------------
 # published checkpoints
-
-
-def to_numpy(x) -> np.ndarray:
-    return np.asarray(x.detach().cpu().float().numpy() if isinstance(x, torch.Tensor) else x)
 
 
 def load_torch_or_npz_state(path) -> dict:

@@ -20,9 +20,9 @@ bfloat16 steps).
 weight-norm key style) into the JAX package's flax tree, fusing the
 positional conv's weight norm; ``load_wavlm_params`` reads a HuggingFace
 model directory without ``transformers`` (``config.json`` with ``json``,
-``pytorch_model.bin`` with ``torch.load`` or ``model.safetensors`` with
-``utils/safetensors_lite.py``) or a bare state-dict file, which takes the
-base-plus geometry.
+the weights with ``utils/hf_weights.read_hf_state_dict``) or a bare
+state-dict file, which takes the base-plus geometry; both load tensors only
+(``weights_only=True``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from everyvoice_tpu_torch.models.styletts2.plbert import to_numpy
+from everyvoice_tpu_torch.utils.hf_weights import read_hf_state_dict, to_numpy
 
 # wavlm-base-plus (HF WavLMConfig defaults).
 BASE_PLUS = dict(
@@ -291,14 +291,8 @@ def load_wavlm_params(model_path) -> tuple:
             "machine with network access and point model.slm.model at the local directory.")
     if path.is_dir():
         geometry = geometry_from_hf_config(json.loads((path / "config.json").read_text("utf8")))
-        if (path / "pytorch_model.bin").is_file():
-            state = torch.load(str(path / "pytorch_model.bin"), map_location="cpu",
-                               weights_only=False)
-        else:
-            from everyvoice_tpu_torch.utils.safetensors_lite import load_file
-
-            state = load_file(path / "model.safetensors")
+        state = read_hf_state_dict(path)
     else:
-        state = torch.load(str(path), map_location="cpu", weights_only=False)
+        state = torch.load(str(path), map_location="cpu", weights_only=True)
         geometry = dict(BASE_PLUS)
     return geometry, convert_torch_wavlm_state(state, geometry["num_layers"])

@@ -8,6 +8,13 @@ the iSTFTNet variant), a project of config files over a corpus, laid out as
 the JAX package's wizard lays one out, and a StyleTTS2 training project on
 it with an out-of-domain text file.
 
+``write_wav2vec2_ctc`` writes a seeded wav2vec2-CTC model directory in the
+HuggingFace layout (``config.json``, ``vocab.json`` with
+facebook/wav2vec2-base-960h's 32 characters, ``preprocessor_config.json``,
+``tokenizer_config.json`` and ``pytorch_model.bin``), wav2vec2-base's
+geometry by default, for the aligner's ``segment align``;
+``write_long_recording`` a seeded long stereo recording and its transcript.
+
 ``write_pretrained_components`` writes StyleTTS2's four pretrained
 components as seeded files in their published formats and, by default, at
 their published geometries: the JDC pitch network's ``bst.t7``, the ASR
@@ -44,6 +51,7 @@ import torch
 from everyvoice_tpu_torch.config import fs2_config, hifigan_config, styletts2_config
 from everyvoice_tpu_torch.convert import torch_to_flax
 from everyvoice_tpu_torch.dsp.audio_io import write_wav
+from everyvoice_tpu_torch.models.aligner.wav2vec2 import WAV2VEC2_BASE, hf_config
 from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
 from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
 from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
@@ -468,6 +476,103 @@ def published_wavlm_state(gen: torch.Generator, geometry: dict = BASE_PLUS) -> d
                       f"{pre}.feed_forward.output_dense.bias": torch.zeros(hid),
                       **_norm(f"{pre}.final_layer_norm", hid)})
     return state
+
+
+# facebook/wav2vec2-base-960h's vocabulary: the specials, the word
+# separator, then the letters by frequency.
+BASE_960H_VOCAB = ("<pad>", "<s>", "</s>", "<unk>", "|", *"ETAONIHSRDLUMWCFGYPBVK'XJQZ")
+
+
+def published_wav2vec2_state(gen: torch.Generator, geometry: dict = WAV2VEC2_BASE) -> dict:
+    """A ``transformers.Wav2Vec2ForCTC`` state dict of ``geometry``
+    (``Wav2Vec2CTC``'s argument names), its positional conv's weight norm
+    under the ``parametrizations`` keys."""
+    hid, inter = geometry["hidden_size"], geometry["intermediate_size"]
+    conv_dim, layer_norms = list(geometry["conv_dim"]), geometry["feat_extract_norm"] == "layer"
+    fe = "wav2vec2.feature_extractor.conv_layers"
+    state = {}
+    for i, (ch, k) in enumerate(zip(conv_dim, geometry["conv_kernel"])):
+        state[f"{fe}.{i}.conv.weight"] = _weight(gen, ch, 1 if i == 0 else conv_dim[i - 1], k)
+        if geometry["conv_bias"]:
+            state[f"{fe}.{i}.conv.bias"] = torch.zeros(ch)
+        if layer_norms or i == 0:
+            state.update(_norm(f"{fe}.{i}.layer_norm", ch))
+    state.update(_norm("wav2vec2.feature_projection.layer_norm", conv_dim[-1]))
+    state.update({"wav2vec2.feature_projection.projection.weight": _weight(gen, hid, conv_dim[-1]),
+                  "wav2vec2.feature_projection.projection.bias": torch.zeros(hid),
+                  "wav2vec2.masked_spec_embed": torch.rand(hid, generator=gen)})
+    kp, groups = geometry["num_conv_pos_embeddings"], geometry["num_conv_pos_embedding_groups"]
+    v = _weight(gen, hid, hid // groups, kp)
+    pc = "wav2vec2.encoder.pos_conv_embed.conv"
+    state.update({f"{pc}.parametrizations.weight.original0":
+                      torch.sqrt((v ** 2).sum(dim=(0, 1), keepdim=True)),
+                  f"{pc}.parametrizations.weight.original1": v, f"{pc}.bias": torch.zeros(hid)})
+    state.update(_norm("wav2vec2.encoder.layer_norm", hid))
+    for i in range(geometry["num_layers"]):
+        pre = f"wav2vec2.encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            state.update({f"{pre}.attention.{name}.weight": _weight(gen, hid, hid),
+                          f"{pre}.attention.{name}.bias": torch.zeros(hid)})
+        state.update({**_norm(f"{pre}.layer_norm", hid),
+                      f"{pre}.feed_forward.intermediate_dense.weight": _weight(gen, inter, hid),
+                      f"{pre}.feed_forward.intermediate_dense.bias": torch.zeros(inter),
+                      f"{pre}.feed_forward.output_dense.weight": _weight(gen, hid, inter),
+                      f"{pre}.feed_forward.output_dense.bias": torch.zeros(hid),
+                      **_norm(f"{pre}.final_layer_norm", hid)})
+    state.update({"lm_head.weight": _weight(gen, geometry["vocab_size"], hid),
+                  "lm_head.bias": torch.zeros(geometry["vocab_size"])})
+    return state
+
+
+def write_wav2vec2_ctc(out_dir: Path, gen: torch.Generator,
+                       geometry: dict = WAV2VEC2_BASE) -> Path:
+    """A seeded wav2vec2-CTC model directory in the HuggingFace layout that
+    ``transformers.Wav2Vec2ForCTC``/``Wav2Vec2Processor.from_pretrained`` and
+    ``load_wav2vec2_ctc`` read, with facebook/wav2vec2-base-960h's
+    vocabulary (``BASE_960H_VOCAB``)."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    geometry = dict(geometry, vocab_size=len(BASE_960H_VOCAB))
+    files = {
+        "config.json": hf_config(geometry),
+        "vocab.json": {token: i for i, token in enumerate(BASE_960H_VOCAB)},
+        "preprocessor_config.json": {
+            "do_normalize": True, "feature_extractor_type": "Wav2Vec2FeatureExtractor",
+            "feature_size": 1, "padding_side": "right", "padding_value": 0.0,
+            "return_attention_mask": False, "sampling_rate": 16000},
+        "tokenizer_config.json": {
+            "tokenizer_class": "Wav2Vec2CTCTokenizer", "unk_token": "<unk>", "bos_token": "<s>",
+            "eos_token": "</s>", "pad_token": "<pad>", "word_delimiter_token": "|",
+            "do_lower_case": False},
+    }
+    for name, content in files.items():
+        (out_dir / name).write_text(json.dumps(content, indent=1), encoding="utf8")
+    torch.save(published_wav2vec2_state(gen, geometry), out_dir / "pytorch_model.bin")
+    return out_dir
+
+
+def write_long_recording(root: Path, n_lines: int, seconds: float, seed: int = 0) -> tuple:
+    """(wav path, transcript path): a seeded stereo recording of about
+    ``seconds`` at 22,050 Hz (voiced tones of varying pitch with pauses, two
+    channels slightly apart) and a transcript of ``n_lines`` lines of
+    ``CORPUS_WORDS``."""
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    sr = 22050
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = 110.0 + 60.0 * np.sin(2 * np.pi * 0.23 * t)
+    voiced = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / sr) * (np.sin(2 * np.pi * 0.5 * t) > -0.3)
+    left = voiced + 0.01 * rng.standard_normal(n)
+    right = 0.9 * voiced + 0.01 * rng.standard_normal(n)
+    wav = root / "long.wav"
+    write_wav(wav, np.stack([left, right]).astype(np.float32), sr)
+    lines = [" ".join(rng.choice(CORPUS_WORDS, size=int(rng.integers(4, 10))))
+             for _ in range(n_lines)]
+    transcript = root / "transcript.txt"
+    transcript.write_text("\n".join(lines) + "\n", encoding="utf8")
+    return wav, transcript
 
 
 def write_pretrained_components(root: Path, gen: torch.Generator, jdc: dict | None = None,

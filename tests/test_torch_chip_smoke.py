@@ -3,6 +3,7 @@ alignment stands in for the CPU's only where the two are a tie on the CPU
 (``path_tie``), built here from the port's ``viterbi_alignment`` on
 log-probabilities that part by far less than a float32 rounding of the
 path's score, and refused for a path that scores worse by a whole unit.
+The aligner's CTC spans (phase 14) likewise, through ``ctc_path_tie``.
 Also: ``alignment_ties.py``, which measures how often the devices part,
 imports nothing of JAX; and ``check_st2_run`` reads a CPU StyleTTS2 run
 as phase 12 calls it, and a CPU run with the pretrained components as
@@ -71,6 +72,44 @@ def test_path_tie_refuses_a_worse_path(chip_smoke):
     tie = chip_smoke.path_tie(cpu_path[0], late_path, *cpu_path)
     assert tie["frames_parted"] == 2
     assert tie["score_gap"] == pytest.approx(1.0, abs=1e-3)
+    assert tie["score_gap"] > tie["tie_bound"]
+
+
+def _tied_ctc():
+    """(6, 3) CTC log-probabilities of targets [1, 2] whose frames 2–3 score
+    the same on both labels: every path that enters label 2 at frame 2, 3
+    or 4 has the same score."""
+    import numpy as np
+
+    lp = np.full((6, 3), -6.0, np.float32)
+    lp[0:2, 1] = lp[4:6, 2] = -0.1
+    lp[2:4, 1:] = -0.7
+    return lp
+
+
+def test_ctc_path_tie_holds_for_spans_of_equal_score(chip_smoke):
+    from everyvoice_tpu_torch.models.aligner.segment import ctc_forced_alignment
+
+    lp = _tied_ctc()
+    card = lp.copy()
+    card[2:4, 1] += 1e-5  # a rounding on the card: label 2 from frame 4
+    spans_cpu, spans_card = ctc_forced_alignment(lp, [1, 2]), ctc_forced_alignment(card, [1, 2])
+    assert spans_cpu == [(0, 0, 2), (1, 2, 6)] and spans_card == [(0, 0, 4), (1, 4, 6)]
+    tie = chip_smoke.ctc_path_tie(spans_card, spans_cpu, card, lp, [1, 2])
+    assert tie["frames_parted"] == 2
+    assert abs(tie["score_gap"]) < 1e-6 <= tie["tie_bound"]
+    same = chip_smoke.ctc_path_tie(spans_cpu, spans_cpu, lp, lp, [1, 2])
+    assert same == {"frames_parted": 0, "score_gap": 0.0, "tie_bound": same["tie_bound"]}
+
+
+def test_ctc_path_tie_refuses_worse_spans(chip_smoke):
+    lp = _tied_ctc()
+    lp[3, 1] -= 1.0  # label 1 at frame 3 costs a whole unit
+    # A card whose log-probabilities equal the CPU's, yet whose search
+    # kept label 1 through frame 3.
+    tie = chip_smoke.ctc_path_tie([(0, 0, 4), (1, 4, 6)], [(0, 0, 2), (1, 2, 6)], lp, lp, [1, 2])
+    assert tie["frames_parted"] == 2
+    assert tie["score_gap"] == pytest.approx(1.0, abs=1e-6)
     assert tie["score_gap"] > tie["tie_bound"]
 
 

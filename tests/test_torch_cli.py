@@ -705,12 +705,13 @@ def test_help_loads_no_torch_and_lists_the_pipeline_first(tmp_path):
     listing = proc.stdout.split("COMMAND\n", 1)[1].split("\n\n", 1)[0]
     verbs = [line.split()[0] for line in listing.splitlines()
              if line.startswith("    ") and not line.startswith("     ")]
-    assert verbs == ["preprocess", "train", "synthesize", "check", "checkpoint", "evaluate",
-                     "export", "fetch-pretrained", "g2p"]
+    assert verbs == ["preprocess", "train", "synthesize", "check", "checkpoint", "demo",
+                     "evaluate", "export", "fetch-pretrained", "g2p", "segment"]
 
 
 @pytest.mark.parametrize("verb", ["preprocess", "train", "train text-to-wav", "synthesize from-text",
-                                  "synthesize from-spec", "check data", "evaluate"])
+                                  "synthesize from-spec", "check data", "evaluate", "demo",
+                                  "segment align", "segment extract"])
 def test_computing_verbs_need_the_card_or_the_cpu_switch(world, trained, port_cli,
                                                          monkeypatch, verb):
     if torch.cuda.is_available():
@@ -727,6 +728,10 @@ def test_computing_verbs_need_the_card_or_the_cpu_switch(world, trained, port_cl
                                  "-i", world["cwd"]],
         "check data": ["check", "data", config, "--model-path", trained["text-to-spec"]],
         "evaluate": ["evaluate", "-d", world["wavs"], "-o", world["cwd"] / "evaluation.json"],
+        "demo": ["demo", trained["text-to-spec"], "--vocoder-path", trained["generator"]],
+        "segment align": ["segment", "align", next(world["wavs"].glob("*.wav")), config,
+                          "--acoustic-model", world["cwd"]],
+        "segment extract": ["segment", "extract", next(world["wavs"].glob("*.wav")), config],
     }[verb]
     rc, _, err = port_cli(*args)
     assert rc == 1 and "runs on a CUDA card by default" in err and "EVERYVOICE_DEVICE=cpu" in err

@@ -99,3 +99,30 @@ def test_optimizer_key_sets_equal_the_pydantic_fields(name):
     cls = {"adam": shared_types.AdamOptimizer, "adamw": shared_types.AdamWOptimizer,
            "rms": shared_types.RMSOptimizer, "noam": shared_types.NoamOptimizer}[name]
     assert set(OPTIMIZERS[name]) == set(cls.model_fields)
+
+
+def test_relative_vocoder_path_resolves_against_the_config_in_the_port(tmp_path, monkeypatch):
+    """A relative ``training.vocoder_path``: the JAX loader keeps it as
+    written, so it resolves against the working directory; the port
+    resolves it against the config file's directory, as it does
+    ``preprocessing.save_dir`` in both."""
+    import json
+    from pathlib import Path
+
+    from everyvoice_tpu_torch.config_files import load_config_from_path
+
+    config_dir = tmp_path / "project" / "config"
+    config_dir.mkdir(parents=True)
+    path = config_dir / "everyvoice-text-to-spec.json"
+    path.write_text(json.dumps({"contact": CONTACT, "training": {"vocoder_path": "../voc.ckpt"},
+                                "preprocessing": {"save_dir": "../preprocessed"}}))
+    elsewhere = tmp_path / "elsewhere"
+    elsewhere.mkdir()
+    monkeypatch.chdir(elsewhere)
+    jax_config = FastSpeech2Config.load_config_from_path(path)
+    port_config = load_config_from_path("text-to-spec", path)
+    assert jax_config.training.vocoder_path == Path("../voc.ckpt")
+    assert jax_config.training.vocoder_path.resolve() == tmp_path / "voc.ckpt"
+    assert Path(port_config["training"]["vocoder_path"]) == tmp_path / "project" / "voc.ckpt"
+    assert (Path(jax_config.preprocessing.save_dir) == Path(port_config["preprocessing"]["save_dir"])
+            == tmp_path / "project" / "preprocessed")

@@ -2,8 +2,9 @@
 plain PyTorch versions, the wrappers' refusals, one FastSpeech2 training
 step and one HiFiGAN GAN step in bfloat16 and in float32, the vocoder's
 re-fold after an optimizer step, a ResBlock2 generator, a StyleTTS2
-synthesis, a StyleTTS2 training step, and a stage-2 step with the
-pretrained components and the SLM. Without a card they skip.
+synthesis, a StyleTTS2 training step, a stage-2 step with the
+pretrained components and the SLM, the aligner's wav2vec2-CTC model and
+windowed scoring, and a demo request. Without a card they skip.
 
 This file imports nothing of JAX, so it also runs on a machine that has no
 JAX, without the repository's conftest (which imports it):
@@ -17,7 +18,8 @@ differs); for the log-mel, 1e-4 absolute, the JAX package's own
 kernel-vs-XLA tolerance; for the float32 training steps, losses and gradient
 norms within 1e-3 relative of the CPU's from the same parameters (TF32 off);
 for float32 generator forwards on the card against the CPU's or against the
-torch-conv forward, 1e-4 of max|ref|.
+torch-conv forward, 1e-4 of max|ref|; for the aligner's float32 log-probs,
+the wav2vec2 golden's atol 5e-4, rtol 5e-3.
 """
 
 import numpy as np
@@ -539,3 +541,70 @@ def test_styletts2_regime2_step_on_the_card(card, tmp_path, compute_dtype):
     assert "gen/slm_ood" in result["cpu"]
     for key, want in result["cpu"].items():
         assert abs(result["cuda"][key] - want) <= 1e-3 * max(abs(want), 1e-12), key
+
+
+@pytest.mark.parametrize("stable", [False, True], ids=["group_postnorm", "layer_stable"])
+def test_wav2vec2_windows_on_the_card(card, stable):
+    """A small wav2vec2-CTC and a two-window scoring in float32 on the card
+    match the CPU's."""
+    from everyvoice_tpu_torch.models.aligner.wav2vec2 import Wav2Vec2CTC, windowed_log_probs
+    from everyvoice_tpu_torch.onchip import seeded_init_
+
+    model = Wav2Vec2CTC(32, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
+                        conv_dim=(32,) * 4, conv_kernel=(10, 3, 3, 2), conv_stride=(5, 2, 2, 2),
+                        num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+                        feat_extract_norm="layer" if stable else "group",
+                        do_stable_layer_norm=stable, conv_bias=stable)
+    seeded_init_(model, torch.Generator().manual_seed(0))
+    model.eval()
+    audio = np.random.default_rng(0).standard_normal(28_000).astype(np.float32)
+    want = windowed_log_probs(model, audio, window_s=1.0, overlap_s=0.25)
+    with torch.no_grad():
+        one_cpu = model(torch.from_numpy(audio[:4000])[None])
+        one_card = model.to(card)(torch.from_numpy(audio[:4000])[None].to(card)).cpu()
+    got = windowed_log_probs(model, audio, window_s=1.0, overlap_s=0.25)
+    assert got.shape == want.shape == (model.output_frames(len(audio)), 32)
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-3)
+    np.testing.assert_allclose(one_card.numpy(), one_cpu.numpy(), atol=5e-4, rtol=5e-3)
+
+
+def test_demo_request_on_the_card(card, tmp_path):
+    """A FastSpeech2 demo request served on the card launches the MRF
+    kernel once a stage and answers a wav of frames × hop samples."""
+    import base64
+    import io
+    import wave
+
+    from everyvoice_tpu_torch.config import fs2_config, hifigan_config
+    from everyvoice_tpu_torch.convert import torch_to_flax
+    from everyvoice_tpu_torch.demo.app import create_demo_app_auto
+    from everyvoice_tpu_torch.models.fs2.model import FastSpeech2
+    from everyvoice_tpu_torch.models.hifigan.model import HiFiGANGenerator
+    from everyvoice_tpu_torch.onchip import seeded_init_
+    from everyvoice_tpu_torch.text import TextProcessor
+    from everyvoice_tpu_torch.train.checkpoint import save_checkpoint
+
+    conformer = {"layers": 1, "input_dim": 64, "feedforward_dim": 128, "conv_kernel_size": 3}
+    vp = {"n_layers": 1, "input_dim": 64}
+    fs2_raw = {"model": {"encoder": conformer, "decoder": conformer, "max_length": 128,
+                         "variance_predictors": {"pitch": vp, "energy": vp, "duration": vp}},
+               "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}}}
+    voc_raw = {"model": {}}  # HiFiGAN V1: every stage's channels a multiple of 32
+    cfg = fs2_config(fs2_raw)
+    fs2 = FastSpeech2.from_config(cfg, len(TextProcessor(cfg["text"]).symbols))
+    voc = HiFiGANGenerator.from_config(hifigan_config(voc_raw))
+    for module, seed in ((fs2, 0), (voc, 1)):
+        seeded_init_(module, torch.Generator().manual_seed(seed))
+    f = save_checkpoint(tmp_path / "fs2.ckpt", "FastSpeech2", fs2_raw,
+                        torch_to_flax(fs2.state_dict(), fs2))
+    v = save_checkpoint(tmp_path / "voc.ckpt", "HiFiGANGenerator", voc_raw,
+                        torch_to_flax(voc.state_dict(), voc))
+    app = create_demo_app_auto(f, vocoder_path=v)
+    assert app.synthesizer.device.type == "cuda"
+    before = mrf_stage.launches
+    code, body = app.synthesize_api({"text": "hello world"})
+    assert code == 200
+    assert mrf_stage.launches - before == len(app.synthesizer.vocoder.ups)
+    with wave.open(io.BytesIO(base64.b64decode(body["wav_base64"]))) as wf:
+        assert wf.getnframes() % app.synthesizer._samples_per_frame() == 0
+        assert wf.getnframes() > 0

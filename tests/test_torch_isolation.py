@@ -2,8 +2,10 @@
 running a small CPU synthesis that writes every output format, a small CPU
 preprocess of an English corpus through G2P and phonological features, two
 CPU training steps on its artifacts, a small CPU StyleTTS2 synthesis and a
-StyleTTS2 training step on the same artifacts loads nothing of JAX, flax, pydantic, regex, msgpack, PyYAML, PIL or
-``everyvoice_tpu``. This file's
+StyleTTS2 training step on the same artifacts, a CTC alignment of a short
+recording with a seeded wav2vec2 directory and one demo request over HTTP
+loads nothing of JAX, flax, pydantic, regex, msgpack, PyYAML, PIL,
+``transformers``, ``safetensors`` or ``everyvoice_tpu``. This file's
 process has imported JAX already (tests/conftest.py), so the check runs in
 a fresh interpreter."""
 
@@ -159,12 +161,39 @@ with tempfile.TemporaryDirectory() as tmp:
     }, pretrained_overrides(paths), mode="second", device="cpu")
     regime2_ckpts = sorted(p.name for p in regime2.ckpt_dir.iterdir())
     regime2_slm = regime2.wavlm is not None and regime2.asr_geometry is not None
+
+    # the aligner: a seeded wav2vec2-CTC directory, a two-line transcript
+    from everyvoice_tpu_torch.models.aligner.segment import align_long_audio, extract_segments
+    from everyvoice_tpu_torch.onchip import write_long_recording, write_wav2vec2_ctc
+    w2v2 = write_wav2vec2_ctc(tmp / "w2v2", torch.Generator().manual_seed(0), {
+        "hidden_size": 16, "num_layers": 1, "num_heads": 2, "intermediate_size": 32,
+        "conv_dim": (8, 8), "conv_kernel": (10, 3), "conv_stride": (5, 2),
+        "num_conv_pos_embeddings": 8, "num_conv_pos_embedding_groups": 2,
+        "feat_extract_norm": "group", "do_stable_layer_norm": False, "conv_bias": False})
+    long_wav, transcript = write_long_recording(tmp / "long", 2, 1.5)
+    segments = align_long_audio(long_wav, transcript, tmp / "a.TextGrid",
+                                acoustic_model=str(w2v2), device="cpu")
+    extracted = len(extract_segments(long_wav, segments, tmp / "segments"))
+
+    # the demo: one request over HTTP
+    import threading, urllib.request
+    from everyvoice_tpu_torch.demo.app import create_demo_app_auto
+    server = create_demo_app_auto(f, vocoder_path=v, device="cpu").make_server()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    request = urllib.request.Request(
+        "http://%s:%d/api/synthesize" % server.server_address,
+        data=json.dumps({"text": "hello world"}).encode(), method="POST")
+    with urllib.request.urlopen(request) as resp:
+        demo_status = resp.status
+        demo_wav = len(json.loads(resp.read())["wav_base64"])
+    server.shutdown()
 roots = sorted({name.split(".")[0] for name in sys.modules})
 print(json.dumps({"roots": roots, "written": len(written), "specs": specs, "pfs": pfs,
                   "samples": [len(r["wav"]) for r in results], "steps": steps,
                   "ckpts": ckpts, "st2_samples": st2_samples, "st2_ckpts": st2_ckpts,
                   "safetensors_layers": safetensors_layers, "regime2_ckpts": regime2_ckpts,
-                  "regime2_slm": regime2_slm}))
+                  "regime2_slm": regime2_slm, "segments": len(segments),
+                  "extracted": extracted, "demo_status": demo_status, "demo_wav": demo_wav}))
 """
 
 
@@ -184,6 +213,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "stage-1-last.ckpt" in report["st2_ckpts"]
     assert report["safetensors_layers"] == 1
     assert "stage-2-last.ckpt" in report["regime2_ckpts"] and report["regime2_slm"]
+    assert report["segments"] == report["extracted"] == 2
+    assert report["demo_status"] == 200 and report["demo_wav"] > 100
     loaded = set(report["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 
@@ -223,6 +254,22 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     for load in (load_fs2_from_checkpoint, load_vocoder_from_checkpoint, load_styletts2_model):
         with pytest.raises(RuntimeError, match="CUDA"):
             load(missing)
+    from everyvoice_tpu_torch.demo.app import create_demo_app_auto
+    from everyvoice_tpu_torch.models.aligner.segment import (
+        align_long_audio,
+        load_wav2vec2_logprob_fn,
+    )
+    from everyvoice_tpu_torch.models.aligner.wav2vec2 import load_wav2vec2_ctc
+
+    never = tmp_path / "never-written.TextGrid"
+    for call in (lambda: load_wav2vec2_ctc(missing), lambda: load_wav2vec2_logprob_fn(missing),
+                 lambda: align_long_audio(missing, missing, never, log_prob_fn=len, vocab={}),
+                 lambda: create_demo_app_auto(missing, vocoder_path=missing)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not never.exists()
+    with pytest.raises(FileNotFoundError):  # past the device, on the CPU
+        load_wav2vec2_ctc(missing, device="cpu")
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
