@@ -159,7 +159,20 @@ Phases, any failure of which exits nonzero:
     everyvoice_tpu_torch demo`` as a process with no device given, which
     must come up on the card within 120 s, refuse the empty and the denied
     text and answer "hello world";
-16. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+16. multi-device training (``parallel_phase``): (a) ``train text-to-spec``,
+    ``spec-to-wav`` and ``text-to-wav --mode first`` through ``cli.main`` at
+    full width on phase 10's and phase 12's projects with ``-d 1`` under
+    ddp (and fsdp and tp1 for FastSpeech2, the same path on one rank), each
+    one rank of a one-rank NCCL group, and FastSpeech2's same training
+    without a mesh: three steps, a validation (every MRF stage held to the
+    plain version) and a checkpoint (the loaders read back ``train``'s),
+    each run's step time and peak memory; (b) two ranks on the one card,
+    started with ``spawn``: NCCL first, then, where it refuses two ranks on
+    one card, gloo over the card's tensors; two FastSpeech2 and two HiFiGAN float32
+    steps under ddp and fsdp, each step's losses and gradient norms and
+    each network's update norm held to the one-process steps on the
+    concatenated batch (1e-3 relative), with each rank's peak memory;
+17. print the kernels line, the card line, and last ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -1925,7 +1938,7 @@ def cli_phase(root: Path, voc_path: Path, card: str) -> dict:
            "si_sdr_db": si_sdr, "child_device": device_lines[0], "card": card}
     print("cli " + json.dumps(row), flush=True)
     return {"mrf_launches": mrf_launches, "mel_launches": mel_launches, "stages": rows,
-            "served_mel": served_mel, "row": row}
+            "served_mel": served_mel, "row": row, "config_dir": config_dir}
 
 
 ST2_STEPS = 5  # diffusion steps, the CLI's default
@@ -2563,7 +2576,7 @@ def st2_training_phase(root: Path, card: str) -> dict:
     print("styletts2 train " + json.dumps(row), flush=True)
     return {"mel_launches": mel_launches, "fft_launches": fft_launches,
             "mrf_launches": st2_mrf_launches, "served_mel": served_mel, "f32": f32,
-            "split": split, "served": served, "row": row}
+            "split": split, "served": served, "row": row, "config": cfg_path}
 
 
 ST2P_SEED = 13         # the seeded pretrained components' generator
@@ -3295,6 +3308,336 @@ def demo_phase(root: Path, fs2_path: Path, voc_path: Path, card: str) -> dict:
     print("demo " + json.dumps(row), flush=True)
     return {"mrf_launches": demo_launches, "stages": rows, "row": row}
 
+PARALLEL_STEPS = 3        # each phase-16 run: three steps, then a validation and last.ckpt
+# On one rank fsdp and tp1 lay nothing out, so each is ddp's path: FastSpeech2
+# runs all three (the command line's proof) and "none", the same command's
+# training without a mesh (``cli.fit_from_args``); the GAN trainers run ddp
+# (two ranks shard them in ``two_rank_phase`` and the CPU tests).
+PARALLEL_STRATEGIES = {"text-to-spec": ("ddp", "fsdp", "tp1", "none"),
+                       "spec-to-wav": ("ddp",), "text-to-wav": ("ddp",)}
+TWO_RANK_BACKENDS = ("nccl", "gloo")
+TWO_RANK_VOCODER_ROWS = 4  # the float32 GAN step's global batch on two ranks
+# the V1 generator with two MPD periods and one MSD scale: the
+# discriminators' fixed widths would otherwise dominate the two ranks' set-up
+TWO_RANK_VOCODER = ["model.mpd_layers=[2, 3]", "model.msd_layers=1"]
+TWO_RANK_TIMEOUT_S = 300
+TWO_RANK_TOL = 1e-3       # a float32 training step, as phases 7, 8 and 12 hold one
+
+
+def _two_rank_steps(trainer, batch_fn, placements: dict, steps: int = 2) -> dict:
+    """Float32 steps of ``trainer`` (placed, fresh optimizer states) on its
+    first training batch: every step's global losses and gradient norms
+    (each later step's come after a sharded update), the global norm of
+    each placement's change over the steps (the updates' AdamW on shards),
+    and the later steps' median milliseconds."""
+    import statistics
+
+    import torch
+
+    _, batch = next(trainer._device_batches(1))  # this rank's rows, on its device
+    before = {name: {n: p.detach().clone() for n, p in placement.owned.items()}
+              for name, placement in placements.items()}
+    out, times = {}, []
+    for k in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = batch_fn(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses = trainer._global_mean(losses)
+        out.update({f"step{k + 1}/{key}": float(v) for key, v in losses.items()})
+        for norm in ("grad_norm", "disc_grad_norm"):
+            if getattr(trainer, norm, None) is not None:
+                out[f"step{k + 1}/{norm}"] = float(getattr(trainer, norm))
+    for name, placement in placements.items():
+        change = {n: (p.detach() - before[name][n]).norm() for n, p in placement.owned.items()}
+        out[f"{name}/update_norm"] = float(placement.global_norm(change))
+    out["step_ms"] = 1e3 * statistics.median(times[1:])
+    return out
+
+
+def _two_rank_runs(fs2, voc) -> dict:
+    """``_two_rank_steps`` of phase 16's FastSpeech2 and HiFiGAN trainers."""
+    return {"fs2": _two_rank_steps(fs2, lambda b: fs2.train_step(b, 1.0),
+                                   {"fs2": fs2.placement}),
+            "hifigan": _two_rank_steps(voc, lambda b: voc.train_step(b, gan_on=True),
+                                       {"generator": voc.gen_placement,
+                                        "discriminators": voc.disc_placement})}
+
+
+def _two_rank_trainers(fs2_yaml: Path, voc_yaml: Path, mesh, fsdp: bool, run_dir: Path):
+    """Phase 16's FastSpeech2 and HiFiGAN (the V1 generator,
+    ``TWO_RANK_VOCODER``'s discriminators) trainers in float32, dropout off,
+    placed on ``mesh`` (or one device) with fresh optimizer states."""
+    from everyvoice_tpu_torch.config_files import load_config_from_path
+    from everyvoice_tpu_torch.models.layers import Dropout
+    from everyvoice_tpu_torch.parallel import fresh_sharded_opt_state
+    from everyvoice_tpu_torch.train.spec_to_wav import spec_to_wav_trainer
+    from everyvoice_tpu_torch.train.text_to_spec import text_to_spec_trainer
+
+    device = None if mesh is not None else "cuda"
+    logs = [f"training.logger.save_dir={run_dir}"]
+    fs2 = text_to_spec_trainer(load_config_from_path("text-to-spec", fs2_yaml, logs),
+                               compute_precision="float32", device=device, mesh=mesh, fsdp=fsdp)
+    for module in fs2.model.modules():
+        if isinstance(module, Dropout):
+            module.p = 0.0
+    fs2.init_params()
+    fs2.place()
+    fs2.opt_state = fresh_sharded_opt_state(fs2.optimizer, fs2.placement)
+    voc = spec_to_wav_trainer(
+        load_config_from_path("spec-to-wav", voc_yaml, logs + TWO_RANK_VOCODER + [
+            f"training.batch_size={TWO_RANK_VOCODER_ROWS}", "training.generator_warmup_steps=0"]),
+        compute_precision="float32", device=device, mesh=mesh, fsdp=fsdp)
+    voc.init_params()
+    voc.place()
+    voc.gen_opt_state = fresh_sharded_opt_state(voc.gen_opt, voc.gen_placement)
+    voc.disc_opt_state = fresh_sharded_opt_state(voc.disc_opt, voc.disc_placement)
+    return fs2, voc
+
+
+def two_rank_worker(rank: int, backend: str, address: str, fs2_yaml: str, voc_yaml: str,
+                    out: str) -> None:
+    """One of two ranks on the one card: join a ``backend`` group, then the
+    FastSpeech2 and HiFiGAN float32 steps under ddp and fsdp on this rank's
+    rows; rank 0 writes what it saw. A strategy whose collectives the
+    backend does not serve is recorded as such."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from everyvoice_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://{address}", rank=rank, world_size=2,
+                            timeout=timedelta(seconds=TWO_RANK_TIMEOUT_S // 2))
+    probe = torch.ones(1, device="cuda")
+    dist.all_reduce(probe)  # where two ranks on one card are refused, here
+    result = {"backend": backend, "probe": float(probe)}
+    mesh = make_mesh(torch.device("cuda", 0))
+    for strategy in ("ddp", "fsdp"):
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            fs2, voc = _two_rank_trainers(Path(fs2_yaml), Path(voc_yaml), mesh,
+                                          strategy == "fsdp", Path(out) / f"runs-{rank}")
+            row = {**_two_rank_runs(fs2, voc),
+                   "sharded_leaves": len(fs2.placement.shards) + len(voc.gen_placement.shards)
+                   + len(voc.disc_placement.shards)}
+            peaks = torch.tensor([torch.cuda.max_memory_allocated() / 2**20], device="cuda")
+            gathered = [torch.zeros_like(peaks) for _ in range(2)]
+            dist.all_gather(gathered, peaks)
+            row["peak_mib_per_rank"] = [float(g) for g in gathered]
+            del fs2, voc
+            torch.cuda.empty_cache()
+        except Exception as e:  # noqa: BLE001 - recorded, and the phase fails on ddp's
+            row = {"error": f"{type(e).__name__}: {e}"[:400]}
+        result[strategy] = row
+    if rank == 0:
+        (Path(out) / "two_rank.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+
+
+def two_rank_phase(fs2_yaml: Path, voc_yaml: Path, work: Path) -> dict:
+    """Phase 16(b): two ranks on the one card, NCCL first, then gloo on the
+    card's tensors; each rank's steps against the one-process steps on the
+    concatenated batch (float32, ``TWO_RANK_TOL``)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from everyvoice_tpu_torch.parallel.launch import free_port
+
+    tried = {}
+    result = None
+    for backend in TWO_RANK_BACKENDS:
+        out = work / f"two-rank-{backend}"
+        out.mkdir(parents=True)
+        context = mp.start_processes(
+            two_rank_worker, args=(backend, f"127.0.0.1:{free_port()}", str(fs2_yaml),
+                                   str(voc_yaml), str(out)),
+            nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+        try:
+            while not context.join(timeout=5.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"no result in {TWO_RANK_TIMEOUT_S} s")
+        except Exception as e:  # noqa: BLE001 - a backend that cannot serve two ranks on one card
+            for process in context.processes:
+                if process.is_alive():
+                    process.kill()
+            tried[backend] = f"{type(e).__name__}: {e}".strip().splitlines()[-1][:300]
+            continue
+        result = json.loads((out / "two_rank.json").read_text())
+        tried[backend] = "ran"
+        break
+    if result is None:
+        return {"ran": False, "tried": tried}
+    with tempfile.TemporaryDirectory(dir=work) as one:
+        fs2, voc = _two_rank_trainers(fs2_yaml, voc_yaml, None, False, Path(one))
+        want = _two_rank_runs(fs2, voc)
+        del fs2, voc
+        torch.cuda.empty_cache()
+    if "error" in result["ddp"]:
+        fail(f"two ranks on the card under ddp ({result['backend']}): {result['ddp']['error']}")
+    compared = {}
+    for strategy in ("ddp", "fsdp"):
+        row = result[strategy]
+        if "error" in row:
+            continue
+        worst = 0.0
+        for model in ("fs2", "hifigan"):
+            for key, value in want[model].items():
+                if key == "step_ms":
+                    continue
+                got = row[model][key]
+                err = abs(got - value) / max(abs(value), 1e-6)
+                worst = max(worst, err)
+                if not (math.isfinite(got) and err <= TWO_RANK_TOL):
+                    fail(f"two-rank {strategy} {model} {key} {got} against the one-process "
+                         f"{value} (relative {err:.3g} > {TWO_RANK_TOL})")
+        compared[strategy] = worst
+    if "error" not in result["fsdp"] and result["fsdp"]["sharded_leaves"] == 0:
+        fail("two-rank fsdp sharded no parameter")
+    return {"ran": True, "tried": tried, "backend": result["backend"], "result": result,
+            "one_process": want, "worst_relative": compared}
+
+
+def parallel_phase(root: Path, fs2_dir: Path, st2_yaml: Path, voc_path: Path,
+                   card: str) -> dict:
+    """Phase 16, multi-device training. (a) ``train text-to-spec``,
+    ``spec-to-wav`` and ``text-to-wav --mode first`` through ``cli.main`` at
+    full width on phase 10's and phase 12's projects with ``-d 1`` and
+    ``PARALLEL_STRATEGIES``: each rank of a one-rank NCCL group, and
+    FastSpeech2's same training without a mesh beside them, ``PARALLEL_STEPS`` steps, a
+    validation and ``last.ckpt``, which the loaders read back (``train``'s);
+    every MRF stage held to the plain version. (b) ``two_rank_phase``."""
+    import statistics
+
+    import torch
+
+    from everyvoice_tpu_torch import cli
+    from everyvoice_tpu_torch.models.fs2.synthesize import (
+        load_fs2_from_checkpoint,
+        load_vocoder_from_checkpoint,
+    )
+    from everyvoice_tpu_torch.models.hifigan import model as hifigan
+    from everyvoice_tpu_torch.models.styletts2.synthesize import load_styletts2_model
+    from everyvoice_tpu_torch.models.styletts2.train import StyleTTS2Trainer
+    from everyvoice_tpu_torch.ops.mrf import mrf_stage
+    from everyvoice_tpu_torch.train.checkpoint import load_checkpoint_header
+    from everyvoice_tpu_torch.train.loop import FastSpeech2Trainer, HiFiGANTrainer
+
+    t_phase = time.perf_counter()
+    work = root / "parallel"
+    work.mkdir()
+    fs2_yaml = fs2_dir / "everyvoice-text-to-spec.yaml"
+    voc_yaml = fs2_dir / "everyvoice-spec-to-wav.yaml"
+    common = ["-d", "1", "-c", f"training.max_steps={PARALLEL_STEPS}",
+              "-c", "training.save_top_k_ckpts=0"]
+    jobs = (
+        ("text-to-spec", fs2_yaml, ["-c", f"training.val_check_interval={PARALLEL_STEPS}",
+                                    "-c", f"training.vocoder_path={voc_path}"],
+         "last.ckpt", load_fs2_from_checkpoint),
+        ("spec-to-wav", voc_yaml, ["-c", f"training.val_check_interval={PARALLEL_STEPS}",
+                                   "-c", "training.generator_warmup_steps=1"],
+         "last.ckpt", load_vocoder_from_checkpoint),
+        ("text-to-wav", st2_yaml, ["--mode", "first"], "stage-1-last.ckpt",
+         load_styletts2_model),
+    )
+    seen, stages = [], {}
+    plain = {cls: cls.train_step for cls in (FastSpeech2Trainer, HiFiGANTrainer,
+                                             StyleTTS2Trainer)}
+
+    def timed(cls):
+        def step(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plain[cls](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            seen.append((self, time.perf_counter() - t0))
+            return out
+        return step
+
+    runs = []
+    hifigan.mrf_stage = checked_mrf_stages(stages)
+    for cls in plain:
+        cls.train_step = timed(cls)
+    mrf_stage.launches = 0
+    try:
+        for kind, yaml_path, extra, ckpt_name, loader in jobs:
+            for strategy in PARALLEL_STRATEGIES[kind]:
+                seen.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                launches = mrf_stage.launches
+                t0 = time.perf_counter()
+                argv = [str(a) for a in ("train", kind, yaml_path, *common, *extra, "-c",
+                                         f"training.logger.name=parallel-{kind}-{strategy}")]
+                if strategy == "none":
+                    cli.fit_from_args(cli.build_parser().parse_args(argv), device="cuda")
+                    rc = 0
+                else:
+                    rc = cli.main(argv[:3] + ["-s", strategy] + argv[3:])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if rc != 0:
+                    fail(f"train {kind} -s {strategy}: exit code {rc}")
+                trainer = seen[0][0]
+                mesh = trainer.mesh
+                if strategy == "none":
+                    if mesh is not None:
+                        fail(f"train {kind} without a mesh ran on {mesh}")
+                elif mesh is None or mesh.backend != "nccl" or mesh.world != 1:
+                    fail(f"train {kind} -s {strategy} ran outside a one-rank NCCL group: {mesh}")
+                if trainer.fsdp != (strategy == "fsdp"):
+                    fail(f"train {kind} -s {strategy}: fsdp {trainer.fsdp}")
+                ckpt = trainer.ckpt_dir / ckpt_name
+                step = load_checkpoint_header(ckpt)["global_step"]
+                if step != PARALLEL_STEPS:
+                    fail(f"{ckpt}: global_step {step}, expected {PARALLEL_STEPS}")
+                if strategy != "none":
+                    loaded = loader(ckpt)
+                    del loaded
+                step_s = [t for _, t in seen]
+                runs.append({
+                    "model": kind, "strategy": strategy,
+                    "backend": None if mesh is None else mesh.backend,
+                    "world": 1, "steps": len(step_s),
+                    "step_ms": 1e3 * statistics.median(step_s[1:] or step_s),
+                    "first_step_ms": 1e3 * step_s[0],
+                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                    "mrf_launches": mrf_stage.launches - launches, "wall_s": wall})
+                del trainer
+                seen.clear()
+                torch.cuda.empty_cache()
+    finally:
+        hifigan.mrf_stage = mrf_stage
+        for cls, step in plain.items():
+            cls.train_step = step
+    mrf_launches = mrf_stage.launches
+    if not all(r["mrf_launches"] > 0 for r in runs if r["model"] != "text-to-wav"):
+        fail(f"a FastSpeech2 or HiFiGAN validation ran no mrf_stage: {runs}")
+    t_two = time.perf_counter()
+    two = two_rank_phase(fs2_yaml, voc_yaml, work)
+    two_rank_s = time.perf_counter() - t_two
+    row = {
+        "a_cli_nccl": runs,
+        "b_two_ranks_one_card": {
+            "ran": two["ran"], "tried": two["tried"], "backend": two.get("backend"),
+            "note": ("two ranks shared the one card through " + two["backend"]
+                     if two["ran"] else "no backend ran two ranks on the one card; the "
+                     "multi-rank numbers are the CPU tests' (gloo)"),
+            "strategies": {s: (two["result"][s] if two["ran"] else None) for s in ("ddp", "fsdp")},
+            "one_process": two.get("one_process"), "worst_relative": two.get("worst_relative"),
+            "seconds": two_rank_s},
+        "mrf_launches": mrf_launches, "mrf_stages": list(stages.values()),
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    print("parallel " + json.dumps(row), flush=True)
+    return {"mrf_launches": mrf_launches, "stages": list(stages.values()), "row": row}
+
 
 def timed_build(name: str) -> tuple:
     from everyvoice_tpu_torch.ops import _build
@@ -3363,6 +3706,8 @@ def main() -> int:
         st2_pretrained = st2_pretrained_phase(tmp, card)
         aligner_phase(tmp, card)
         demo = demo_phase(tmp, fs2_path, voc_path, card)
+        parallel = parallel_phase(tmp, cli_run["config_dir"], st2_trained["config"], voc_path,
+                                  card)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -3372,7 +3717,8 @@ def main() -> int:
         "replaces": "everyvoice_tpu/ops/mrf_pallas.py:137",
         "launches": (served["launches"] + training_launches + vocoder["launches"]
                      + vocoder["serving_launches"] + phone["mrf_launches"]
-                     + cli_run["mrf_launches"] + demo["mrf_launches"]),
+                     + cli_run["mrf_launches"] + demo["mrf_launches"]
+                     + parallel["mrf_launches"]),
         "serving_launches": served["launches"],
         "training_launches": training_launches,
         "vocoder_training_launches": vocoder["launches"],
@@ -3382,11 +3728,12 @@ def main() -> int:
         "styletts2_training_launches": st2_trained["mrf_launches"],
         "styletts2_pretrained_launches": st2_pretrained["mrf_launches"],
         "demo_launches": demo["mrf_launches"],
+        "parallel_launches": parallel["mrf_launches"],
         "kernel_launches": served["kernel_launches"],
         "design": DESIGN["torch.bfloat16"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16 + served_stages + training_stages
                            + vocoder["stages"] + phone["stages"] + cli_run["stages"]
-                           + demo["stages"]),
+                           + demo["stages"] + parallel["stages"]),
         "ms": sum(r["kernel_ms"] for r in bf16),
         "plain_ms": sum(r["plain_ms"] for r in bf16),
         "bound_ms": sum(r["bound_ms"] for r in bf16),

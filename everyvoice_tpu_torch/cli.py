@@ -39,7 +39,6 @@ STEPS = ("audio", "text", "pfs", "spec", "attn", "energy", "pitch", "ood")
 ROADMAP_ITEMS = {
     "device_audio": "queue 1, 'The rest' (the preprocessor's device audio path)",
     "fetch_pretrained": "queue 1, 'fetch-pretrained'",
-    "parallelism": "queue 1, 'Parallelism'",
 }
 
 
@@ -197,43 +196,87 @@ def _accelerator(accelerator: str):
     return {"cpu": "cpu", "gpu": "cuda"}.get(accelerator)
 
 
-def _train_device(args):
-    name = _accelerator(args.accelerator)
-    if args.strategy != "ddp":
-        raise not_ported(f"--strategy {args.strategy}", "parallelism")
+def _train_plan(args) -> tuple:
+    """(device type, strategy) of a ``train`` command, its flags checked
+    before any worker starts."""
+    from everyvoice_tpu_torch.parallel.mesh import resolve_devices
+    from everyvoice_tpu_torch.parallel.sharding import parse_strategy
+
+    try:
+        strategy = parse_strategy(args.strategy)
+    except ValueError as e:
+        raise CLIError(str(e)) from None
     if args.devices != "auto":
         try:
-            devices = int(args.devices)
+            int(args.devices)
         except ValueError:
             raise CLIError(f"--devices {args.devices!r}: expected 'auto' or a count") from None
-        if devices > 1:
-            raise not_ported(f"--devices {devices}", "parallelism")
-    if args.nodes > 1:
-        raise not_ported(f"--nodes {args.nodes}", "parallelism")
-    return _device(name)
+    if args.nodes < 1:
+        raise CLIError(f"--nodes {args.nodes}: expected a positive count")
+    kind = _device(_accelerator(args.accelerator)).type
+    try:
+        per_node = len(resolve_devices(kind, args.devices))
+    except (RuntimeError, ValueError) as e:
+        raise CLIError(str(e)) from None
+    if (per_node * args.nodes) % strategy.model_parallel:
+        raise CLIError(f"--strategy {args.strategy}: {per_node * args.nodes} device(s) do not "
+                       f"split into tensor-parallel groups of {strategy.model_parallel}")
+    return kind, strategy
 
 
-def train(args) -> int:
-    device = _train_device(args)
-    kind = args.model_kind
-    config = _load_config(kind, args.config_path, args.config_args)
+def fit_from_args(args, mesh=None, fsdp: bool = False, device=None):
+    """The trained trainer of a parsed ``train`` command: as one rank of
+    ``mesh``, or on ``device`` alone without one."""
+    model_kind = args.model_kind
+    config = _load_config(model_kind, args.config_path, args.config_args)
     options = {}
-    if kind == "text-to-spec":
+    if model_kind == "text-to-spec":
         from everyvoice_tpu_torch.train.text_to_spec import train_text_to_spec as fit
-    elif kind == "spec-to-wav":
+    elif model_kind == "spec-to-wav":
         from everyvoice_tpu_torch.train.spec_to_wav import train_spec_to_wav as fit
     else:
         from everyvoice_tpu_torch.train.text_to_wav import train_text_to_wav as fit
 
         options["mode"] = args.mode
-    trainer = fit(config, gradient_clip_val=args.gradient_clip_val,
-                  profile_steps=args.profile_steps,
-                  steps_per_execution=args.steps_per_execution,
-                  compute_precision=args.compute_precision, device=device, **options)
-    if kind == "text-to-wav":
-        print(f"Stage {args.mode} training complete; checkpoints at {trainer.ckpt_dir}")
-    else:
-        print(f"Training complete; checkpoints at {trainer.ckpt_dir}")
+    return fit(config, gradient_clip_val=args.gradient_clip_val,
+               profile_steps=args.profile_steps, steps_per_execution=args.steps_per_execution,
+               compute_precision=args.compute_precision, device=device, mesh=mesh, fsdp=fsdp,
+               **options)
+
+
+def _train_worker(local_rank: int, coordinator: str, args, kind: str, strategy) -> None:
+    """One rank of ``train``: join the mesh, train, leave."""
+    from everyvoice_tpu_torch.parallel.mesh import setup_mesh, teardown
+
+    mesh = setup_mesh(kind, args.devices, args.nodes, strategy.model_parallel, local_rank,
+                      address=coordinator)
+    try:
+        trainer = fit_from_args(args, mesh, strategy.fsdp)
+        if not mesh.is_main:
+            return
+        if args.model_kind == "text-to-wav":
+            print(f"Stage {args.mode} training complete; checkpoints at {trainer.ckpt_dir}",
+                  flush=True)
+        else:
+            print(f"Training complete; checkpoints at {trainer.ckpt_dir}", flush=True)
+    finally:
+        teardown(mesh)
+
+
+def train(args) -> int:
+    """Train on ``--devices`` devices of each of ``--nodes`` nodes, one
+    worker process a device, under ``--strategy``; a worker's failure fails
+    the command."""
+    import torch.multiprocessing as mp
+
+    from everyvoice_tpu_torch.parallel.launch import launch
+
+    kind, strategy = _train_plan(args)
+    _load_config(args.model_kind, args.config_path, args.config_args)  # fail before the workers
+    try:
+        launch(_train_worker, (args, kind, strategy), kind, args.devices, args.nodes)
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise CLIError(f"a training worker failed:\n{e}") from None
     return 0
 
 
@@ -614,10 +657,18 @@ def _common_train_options(p) -> None:
                    help="key.path=value config overrides")
     p.add_argument("-a", "--accelerator", default="auto", choices=("auto", "tpu", "cpu", "gpu"),
                    help="auto and gpu: the CUDA card; cpu: the CPU")
-    p.add_argument("-d", "--devices", default="auto")
-    p.add_argument("-n", "--nodes", default=1, type=int)
+    p.add_argument("-d", "--devices", default="auto",
+                   help="Devices per node, one worker process each: 'auto' every visible "
+                   "card (one CPU rank with -a cpu), or a count (gloo ranks with -a cpu).")
+    p.add_argument("-n", "--nodes", default=1, type=int,
+                   help="Nodes (hosts) running this command; node rank and rank 0's address "
+                   "from EVERYVOICE_NODE_RANK/NODE_RANK and EVERYVOICE_COORDINATOR_ADDRESS "
+                   "or MASTER_ADDR:MASTER_PORT.")
     p.add_argument("-s", "--strategy", default="ddp",
-                   help="'ddp' (the default; one card); others are not ported yet")
+                   help="'ddp'/'auto' (data parallel, the default), 'fsdp' (ZeRO-3 parameter "
+                   "and optimizer-state sharding), or 'tp<k>'/'ddp_tp<k>' (k-way tensor "
+                   "parallelism of FastSpeech2's Conformer; the vocoders and StyleTTS2 stay "
+                   "replicated).")
     p.add_argument("--gradient-clip-val", default=None, type=float)
     p.add_argument("--profile-steps", default=0, type=int,
                    help="Capture a torch.profiler trace of the first N steps into the run dir.")

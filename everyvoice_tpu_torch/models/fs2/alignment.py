@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from everyvoice_tpu_torch.models.layers import conv1d_same
+from everyvoice_tpu_torch.parallel.collectives import mean_denominator
 
 NEG_INF = -1e9
 
@@ -97,7 +98,7 @@ def forward_sum_loss(attn_logprob, src_lengths, mel_lengths, row_weights=None):
     per_row = -final / torch.clamp(mel_lengths, min=1).to(final.dtype)
     if row_weights is None:
         return per_row.mean()
-    return torch.sum(per_row * row_weights) / torch.clamp(torch.sum(row_weights), min=1.0)
+    return torch.sum(per_row * row_weights) / mean_denominator(torch.sum(row_weights), 1.0)
 
 
 def viterbi_alignment(attn_logprob, src_lengths, mel_lengths) -> torch.Tensor:
@@ -151,7 +152,7 @@ def binarization_loss(attn_soft, attn_hard):
     per_frame = -torch.log(torch.sum(attn_soft * attn_hard, dim=-1) + 1e-8)
     valid = torch.sum(attn_hard, dim=-1) > 0
     return torch.sum(torch.where(valid, per_frame, torch.zeros((), device=per_frame.device))) / (
-        torch.clamp(valid.sum(), min=1).to(per_frame.dtype)
+        mean_denominator(valid.sum()).to(per_frame.dtype)
     )
 
 

@@ -13,18 +13,20 @@ from everyvoice_tpu_torch.models.fs2.alignment import (
     forward_sum_loss,
     viterbi_alignment,
 )
+from everyvoice_tpu_torch.parallel.collectives import mean_denominator
 
 
 def masked_loss(pred, target, mask, kind: str = "mse"):
     """Mean of the squared (or absolute) error over the mask's true entries
-    (times the trailing feature size when the mask has fewer axes)."""
+    (times the trailing feature size when the mask has fewer axes); their
+    count is the global batch's inside ``parallel.data_parallel``."""
     diff = pred - target
     per = torch.abs(diff) if kind == "mae" else diff * diff
     if mask.dim() < per.dim():
         mask = mask[..., None]
     per = torch.where(mask, per, torch.zeros((), device=per.device))
     count = mask.sum() * (per.numel() // mask.numel())
-    return per.sum() / torch.clamp(count, min=1).to(per.dtype)
+    return per.sum() / mean_denominator(count).to(per.dtype)
 
 
 def compute_fs2_losses(

@@ -24,6 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from everyvoice_tpu_torch.parallel.collectives import (
+    copy_to_model_parallel,
+    reduce_from_model_parallel,
+)
+
 NORM_EPS = 1e-6
 
 
@@ -80,6 +85,29 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+@torch.no_grad()
+def _keep_rows(layer: nn.Linear, rank: int, size: int) -> None:
+    """``layer``'s output features cut to block ``rank`` of ``size``."""
+    per = layer.weight.shape[0] // size
+    layer.weight = nn.Parameter(layer.weight[rank * per:(rank + 1) * per].clone())
+    layer.bias = nn.Parameter(layer.bias[rank * per:(rank + 1) * per].clone())
+
+
+@torch.no_grad()
+def _keep_columns(layer: nn.Linear, rank: int, size: int) -> None:
+    """``layer``'s input features cut to block ``rank`` of ``size`` (its
+    bias whole)."""
+    per = layer.weight.shape[1] // size
+    layer.weight = nn.Parameter(layer.weight[:, rank * per:(rank + 1) * per].clone())
+
+
+def _row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, group) -> torch.Tensor:
+    """A row-parallel dense layer: the partial product summed over the
+    model axis, then the bias."""
+    y = reduce_from_model_parallel(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    return y + layer.bias.to(dtype)
+
+
 def conv1d_same(x: torch.Tensor, layer: nn.Conv1d, dtype: torch.dtype, dilation: int = 1) -> torch.Tensor:
     """flax ``nn.Conv(padding="SAME")`` on (B, T, C): the left pad is the
     smaller half of (k-1)·dilation."""
@@ -116,11 +144,24 @@ class FeedForwardModule(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, dim)
         self.drop_hidden = Dropout(dropout)
         self.drop_out = Dropout(dropout)
+        self.model_parallel = None  # the model axis's group under tensor parallelism
+
+    def tensor_parallel(self, rank: int, size: int, group) -> None:
+        """Keep this rank's ``1/size`` of the hidden features: ``fc1``
+        column-parallel, ``fc2`` row-parallel, its output summed over
+        ``group`` before its bias."""
+        _keep_rows(self.fc1, rank, size)
+        _keep_columns(self.fc2, rank, size)
+        self.model_parallel = group
 
     def forward(self, x):
         x = layer_norm(x, self.norm, self.dtype)
+        if self.model_parallel is None:
+            x = self.drop_hidden(F.silu(linear(x, self.fc1, self.dtype)))
+            return self.drop_out(linear(x, self.fc2, self.dtype))
+        x = copy_to_model_parallel(x, self.model_parallel)
         x = self.drop_hidden(F.silu(linear(x, self.fc1, self.dtype)))
-        return self.drop_out(linear(x, self.fc2, self.dtype))
+        return self.drop_out(_row_parallel(x, self.fc2, self.dtype, self.model_parallel))
 
 
 class ConformerConvModule(nn.Module):
@@ -159,28 +200,46 @@ class MultiHeadAttention(nn.Module):
         self.dtype = dtype
         self.drop = Dropout(dropout, shared_dims=2)
         self.heads = heads
+        self.local_heads = heads
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+        self.model_parallel = None  # the model axis's group under tensor parallelism
+
+    def tensor_parallel(self, rank: int, size: int, group) -> None:
+        """Keep this rank's ``heads/size`` heads: query, key and value
+        column-parallel, the output projection row-parallel, its output
+        summed over ``group`` before its bias."""
+        for layer in (self.query, self.key, self.value):
+            _keep_rows(layer, rank, size)
+        _keep_columns(self.out, rank, size)
+        self.local_heads = self.heads // size
+        self.model_parallel = group
 
     def forward(self, x, mask=None, kv=None):
-        kv = x if kv is None else kv
         b, t, dim = x.shape
-        h = self.heads
+        h, hd = self.local_heads, dim // self.heads
+        if self.model_parallel is not None:
+            x = copy_to_model_parallel(x, self.model_parallel)
+            if kv is not None:
+                kv = copy_to_model_parallel(kv, self.model_parallel)
+        kv = x if kv is None else kv
 
         def heads(inputs, layer):
-            return linear(inputs, layer, self.dtype).view(b, inputs.shape[1], h, dim // h).transpose(1, 2)
+            return linear(inputs, layer, self.dtype).view(b, inputs.shape[1], h, hd).transpose(1, 2)
 
         q, k, v = heads(x, self.query), heads(kv, self.key), heads(kv, self.value)
-        q = q / torch.sqrt(torch.tensor(dim // h, dtype=q.dtype))
+        q = q / torch.sqrt(torch.tensor(hd, dtype=q.dtype))
         logits = q @ k.transpose(-1, -2)  # (B, H, T, S)
         if mask is not None:
             pair = mask[:, None, None, :] & mask[:, None, :, None]
             logits = logits.masked_fill(~pair, torch.finfo(logits.dtype).min)
         weights = self.drop(torch.softmax(logits.float(), dim=-1).to(self.dtype))
-        y = (weights @ v).transpose(1, 2).reshape(b, t, dim)
-        return linear(y, self.out, self.dtype)
+        y = (weights @ v).transpose(1, 2).reshape(b, t, h * hd)
+        if self.model_parallel is None:
+            return linear(y, self.out, self.dtype)
+        return _row_parallel(y, self.out, self.dtype, self.model_parallel)
 
 
 class ConformerBlock(nn.Module):

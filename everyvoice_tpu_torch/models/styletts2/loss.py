@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from everyvoice_tpu_torch.parallel.collectives import mean_denominator
+
 # The JAX package draws the EDM loss's log σ as N(-3, 1), hard-coded
 # (loss.py:66), whatever the config's ``diffusion.dist`` says.
 LOG_SIGMA_MEAN = -3.0
@@ -19,8 +21,10 @@ LOG_SIGMA_STD = 1.0
 
 
 def _masked_mean(per: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the mask's true entries, their count the global batch's
+    inside ``parallel.data_parallel``."""
     mask = mask.to(per.dtype)
-    return torch.sum(per * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.sum(per * mask) / mean_denominator(torch.sum(mask))
 
 
 def mel_reconstruction_loss(wav_fake, wav_real, mel_fn, compress_fn):

@@ -95,7 +95,16 @@ from everyvoice_tpu_torch.models.styletts2.slm import (
     stack_hidden_states,
     wavlm_from_flax,
 )
-from everyvoice_tpu_torch.parallel import pad_batch_for_eval
+from everyvoice_tpu_torch.parallel import (
+    data_parallel,
+    fresh_sharded_opt_state,
+    full_opt_state,
+    mean_denominator,
+    pad_batch_for_eval,
+    shard_opt_state_like,
+    shard_params,
+)
+from everyvoice_tpu_torch.parallel.sharding import Placement, gathered
 from everyvoice_tpu_torch.train.checkpoint import load_checkpoint
 from everyvoice_tpu_torch.train.loop import (
     LECUN_TRUNCATED_STD,
@@ -104,7 +113,7 @@ from everyvoice_tpu_torch.train.loop import (
     _truncated_normal,
     init_hifigan_parameters,
 )
-from everyvoice_tpu_torch.train.optim import build_optimizer
+from everyvoice_tpu_torch.train.optim import build_optimizer, global_norm_of
 from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
 from everyvoice_tpu_torch.utils.precision import no_tf32, resolve_compute_dtype, torch_dtype
 
@@ -200,10 +209,10 @@ class GroupedAdamW:
         return {g: self.groups[g].init(p) for g, p in self._split(params).items()}
 
     @torch.no_grad()
-    def step(self, params: dict, grads: dict, state: dict) -> torch.Tensor:
+    def step(self, params: dict, grads: dict, state: dict, global_norm=None) -> torch.Tensor:
         g = {n: grads[n] if grads.get(n) is not None else torch.zeros_like(p)
              for n, p in params.items()}
-        norm = torch.sqrt(torch.stack(torch._foreach_norm(list(g.values()))).square().sum())
+        norm = global_norm_of(list(g), list(g.values()), global_norm)
         if self.clip is not None:
             factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
             g = dict(zip(g, torch._foreach_mul(list(g.values()), factor)))
@@ -283,6 +292,17 @@ class StepDraws:
         return StepDraws(**{f.name: None if getattr(self, f.name) is None
                             else getattr(self, f.name).to(device) for f in fields(self)})
 
+    def rows(self, start: int, count: int) -> "StepDraws":
+        """The draws of rows ``start`` to ``start + count`` of the batch
+        (the ASR keep mask is (N+1, B, hidden))."""
+        def cut(name, value):
+            if value is None:
+                return None
+            if name == "asr_keep":
+                return value[:, start:start + count]
+            return value[start:start + count]
+        return StepDraws(**{f.name: cut(f.name, getattr(self, f.name)) for f in fields(self)})
+
 
 @contextmanager
 def deterministic(module: nn.Module):
@@ -343,19 +363,24 @@ class StyleTTS2Trainer(TrainerBase):
     (the CUDA card unless the caller names the CPU). The LSTMs' input
     biases stay zero (flax's LSTM cell has none), so they are not
     trained. ``jdc`` and ``wavlm`` are the frozen pretrained networks (None
-    when not staged); the SLM head is ``discriminators.slm``."""
+    when not staged); the SLM head is ``discriminators.slm``. On a ``mesh``
+    the trained networks are replicated (data parallel; a tensor-parallel
+    strategy's model-axis ranks compute the same rows, as the JAX trainer's
+    do) or, with ``fsdp``, sharded; the frozen ones are replicated. Each
+    rank draws the global batch's ``StepDraws`` and keeps its rows."""
 
     model_name = "StyleTTS2Module"
 
     def __init__(self, config: dict, dataset, val_dataset, lang2id: Optional[dict] = None,
                  run_dir: Optional[Path] = None, mode: str = "first",
                  gradient_clip_val: Optional[float] = None, compute_dtype: str = "auto",
-                 device=None):
+                 device=None, mesh=None, fsdp: bool = False):
         if mode not in STAGE_CHECKPOINTS:
             raise ValueError(f"mode must be 'first' or 'second', not {mode!r}")
-        device = resolve_device(device)  # before the components and the run directory
+        # before the components and the run directory
+        device = resolve_device(device) if mesh is None else mesh.device
         self.last_checkpoint_name = STAGE_CHECKPOINTS[mode]
-        super().__init__(config, run_dir=run_dir, device=device)
+        super().__init__(config, run_dir=run_dir, device=device, mesh=mesh, fsdp=fsdp)
         self.mode = mode
         self.dataset = dataset
         self.val_dataset = val_dataset
@@ -398,6 +423,8 @@ class StyleTTS2Trainer(TrainerBase):
                 p.requires_grad_(False)
         self.gen_params = {n: p for n, p in self.model.named_parameters() if p.requires_grad}
         self.disc_params = dict(self.discriminators.named_parameters())
+        self.gen_placement = Placement(self.gen_params)  # laid out on the mesh by place()
+        self.disc_placement = Placement(self.disc_params)
         opt = self.training_config["optimizer"]
         if self.plbert_geometry is not None or self.asr_geometry is not None:
             # the model has these modules only where their component is staged
@@ -417,7 +444,7 @@ class StyleTTS2Trainer(TrainerBase):
         self.hop_samples = a["fft_hop_size"] * (a["output_sampling_rate"] // a["input_sampling_rate"])
         name = self.training_config["logger"]["name"]
         self.dropout_generator = torch.Generator(self.device).manual_seed(
-            zlib.crc32(name.encode("utf8")))
+            self._rank_seed(zlib.crc32(name.encode("utf8"))))
         set_dropout_generator(self.model, self.dropout_generator)
         self.step_generator = torch.Generator(self.device).manual_seed(STEP_SEED)
         self.gen_opt_state: Optional[dict] = None
@@ -536,14 +563,16 @@ class StyleTTS2Trainer(TrainerBase):
         default), on the batch's device: a clip start an utterance, uniform
         over the starts that keep the clip inside its frames (0 for a
         shorter one), then both decodes' source noise and the diffusion's
-        draws."""
+        draws. On a mesh they are drawn for the global batch (its
+        ``global_mel_lengths``) and this rank keeps its rows."""
         g = generator if generator is not None else self.step_generator
         device = batch["mel"].device
-        b = batch["mel"].shape[0]
+        lengths = batch.get("global_mel_lengths", batch["mel_lengths"])
+        b = lengths.shape[0]
         seg = self.model.segment_frames
         starts = None
         if seg is not None:
-            span = torch.clamp(batch["mel_lengths"].long() - seg, min=0) + 1
+            span = torch.clamp(lengths.long() - seg, min=0) + 1
             u = torch.rand(b, generator=g, device=device)
             starts = torch.minimum((u * span).long(), span - 1)
         n = (seg or self.model.max_frames) * self.model.hop
@@ -562,7 +591,8 @@ class StyleTTS2Trainer(TrainerBase):
             draws.ood_index_disc = torch.randint(size, (b,), generator=g, device=device)
             draws.ood_index_gen = torch.randint(size, (b,), generator=g, device=device)
             draws.ood_noise_disc, draws.ood_noise_gen = normal(b, n), normal(b, n)
-        return draws
+        local = batch["mel"].shape[0]
+        return draws if local == b else draws.rows(self.data_rank * local, local)
 
     def alignment_targets(self, batch: dict, tma_active: bool) -> dict:
         """Durations, frame F0 (``target_f0_frames``) and token F0/energy
@@ -727,16 +757,19 @@ class StyleTTS2Trainer(TrainerBase):
         _, diff_on, joint_on = self.phase_weights(epoch)
         self.model.train()
         self.discriminators.train()
-        with no_tf32():
+        with no_tf32(), data_parallel(self.mesh), gathered(self.gen_placement,
+                                                           self.disc_placement):
             draws = draws if draws is not None else self.draw_step(batch)
             targets = self.alignment_targets(batch, tma)
             targets["segment_starts"] = draws.segment_starts
             d_metrics, d_grads = self.discriminator_grads(batch, targets, draws, joint_on, ood)
-            self.disc_grad_norm = self.disc_opt.step(self.disc_params, d_grads,
-                                                     self.disc_opt_state)
+            self.disc_grad_norm = self._update(self.disc_opt, self.disc_placement, d_grads,
+                                               self.disc_opt_state)
+            self.disc_placement.gather()  # the generator's loss sees the update
             losses, g_grads = self.generator_grads(batch, targets, draws, diff_on, tma,
                                                    joint_on, ood)
-            self.grad_norm = self.gen_opt.step(self.gen_params, g_grads, self.gen_opt_state)
+            self.grad_norm = self._update(self.gen_opt, self.gen_placement, g_grads,
+                                          self.gen_opt_state)
         return {**{k: v.detach() for k, v in d_metrics.items()},
                 **{f"gen/{k}": v.detach() for k, v in losses.items()}}
 
@@ -757,16 +790,17 @@ class StyleTTS2Trainer(TrainerBase):
         frames; pad rows (``row_weights`` 0) count nowhere."""
         with torch.no_grad(), no_tf32(), deterministic(self.model):
             f0_frames, f0_tokens = self.teacher_f0(batch)
+            noise = self._rank_block(self.validation_noise(batch["mel"].shape[0] * self.data_size))
             out = self.model(batch["text"], batch["text_lengths"], batch["mel"],
-                             batch["mel_lengths"], batch["durations"], f0_frames,
-                             self.validation_noise(batch["mel"].shape[0]))
+                             batch["mel_lengths"], batch["durations"], f0_frames, noise)
             fake = out["wav"]
             diff = torch.abs(self._log_mel(fake) - self._log_mel(batch["audio"][:, : fake.shape[1]]))
             src_mask = lengths_to_mask(batch["text_lengths"], batch["text"].shape[1])
             weights = batch.get("row_weights")
             if weights is not None:
                 src_mask = src_mask & (weights > 0.5)[:, None]
-                mel = torch.sum(diff.mean(dim=(1, 2)) * weights) / torch.clamp(weights.sum(), min=1.0)
+                mel = torch.sum(diff.mean(dim=(1, 2)) * weights) / mean_denominator(weights.sum(),
+                                                                                    1.0)
             else:
                 mel = diff.mean()
             durations = batch["durations"]
@@ -786,18 +820,21 @@ class StyleTTS2Trainer(TrainerBase):
 
     def validate(self) -> dict:
         """Mean validation losses over real rows, from at most 8 batches of
-        ``batch_size`` (the last padded up with 0-weighted rows)."""
+        ``batch_size`` (at least the device count; the last padded up with
+        0-weighted rows), each split over the batch ranks."""
         totals: dict = {}
         rows = 0
-        batch_size = max(self.training_config["batch_size"], 1)
-        for count, batch in enumerate(self.val_dataset.batches(batch_size, shuffle=False)):
-            if count >= VALIDATION_BATCHES:
-                break
-            batch.pop("basenames", None)
-            batch, n_true = pad_batch_for_eval(batch, 1, batch_size)
-            for k, v in _host_floats(self.val_losses(to_device(batch, self.device))).items():
-                totals[k] = totals.get(k, 0.0) + v * n_true
-            rows += n_true
+        batch_size = max(self.training_config["batch_size"], self.n_devices, 1)
+        with gathered(self.gen_placement), data_parallel(self.mesh):
+            for count, batch in enumerate(self.val_dataset.batches(batch_size, shuffle=False)):
+                if count >= VALIDATION_BATCHES:
+                    break
+                batch.pop("basenames", None)
+                batch, n_true = pad_batch_for_eval(batch, self.n_devices, batch_size)
+                losses = self.val_losses(to_device(self._local_rows(batch), self.device))
+                for k, v in _host_floats(self._global_mean(losses)).items():
+                    totals[k] = totals.get(k, 0.0) + v * n_true
+                rows += n_true
         return {f"validation/{k}": v / rows for k, v in totals.items()} if rows else {}
 
     # -- parameters and checkpoints ---------------------------------------
@@ -866,14 +903,34 @@ class StyleTTS2Trainer(TrainerBase):
     def host_state(self) -> tuple:
         """(params tree, optimizer tree) on the host, in the JAX layouts:
         ``{"generator": ..., "discriminators": {"mpd": ..., "msd": ...}}``
-        and ``{"gen": ..., "disc": ...}``."""
-        params = hifigan_tree(self.model.state_dict(), self.discriminators.state_dict(),
-                              self.model, self.discriminators)
+        and ``{"gen": ..., "disc": ...}``, whole tensors gathered from every
+        rank; (None, None) off rank 0."""
+        with gathered(self.gen_placement, self.disc_placement):
+            gen_state, disc_state = self.model.state_dict(), self.discriminators.state_dict()
+        gen_opt = full_opt_state(self.gen_opt_state, self.gen_placement)
+        disc_opt = full_opt_state(self.disc_opt_state, self.disc_placement)
+        if not self.is_main:
+            return None, None
+        params = hifigan_tree(gen_state, disc_state, self.model, self.discriminators)
         return params, {
-            "gen": self.gen_opt.to_optax(self.gen_opt_state, self._gen_to_flax),
-            "disc": self.disc_opt.to_optax(self.disc_opt_state,
+            "gen": self.gen_opt.to_optax(gen_opt, self._gen_to_flax),
+            "disc": self.disc_opt.to_optax(disc_opt,
                                            partial(torch_to_flax, model=self.discriminators)),
         }
+
+    def place(self) -> None:
+        """Lay both trained networks' (loaded) parameters out on the mesh:
+        replicated, or FSDP shards."""
+        self.gen_placement = shard_params(self.gen_params, self.mesh, fsdp=self.fsdp)
+        self.disc_placement = shard_params(self.disc_params, self.mesh, fsdp=self.fsdp)
+
+    def _local_rows(self, host_batch: dict) -> dict:
+        """This rank's rows, with the global batch's mel lengths, which the
+        global draws need."""
+        local = super()._local_rows(host_batch)
+        if local is not host_batch:
+            local["global_mel_lengths"] = host_batch["mel_lengths"]
+        return local
 
     def checkpoint_extra(self) -> dict:
         """The header's stage tag and the pretrained components' geometries
@@ -935,15 +992,17 @@ class StyleTTS2Trainer(TrainerBase):
                 logger.warning(f"Stage-1 checkpoint {t['first_stage_path']} not found; "
                                "training stage 2 from scratch.")
         opt_tree = opt_tree or {}
-        self.gen_opt_state = (
-            self.gen_opt.init(self.gen_params) if opt_tree.get("gen") is None
-            else self.gen_opt.from_optax(opt_tree["gen"],
-                                         self._from_flax_for(self.model, self.gen_params)))
-        self.disc_opt_state = (
-            self.disc_opt.init(self.disc_params) if opt_tree.get("disc") is None
-            else self.disc_opt.from_optax(opt_tree["disc"],
-                                          self._from_flax_for(self.discriminators,
-                                                              self.disc_params)))
+        restored = {key: None if opt_tree.get(key) is None
+                    else opt.from_optax(opt_tree[key], self._from_flax_for(module, params))
+                    for key, opt, module, params in (
+                        ("gen", self.gen_opt, self.model, self.gen_params),
+                        ("disc", self.disc_opt, self.discriminators, self.disc_params))}
+        self.place()
+        self.gen_opt_state, self.disc_opt_state = (
+            fresh_sharded_opt_state(opt, placement) if restored[key] is None
+            else shard_opt_state_like(restored[key], placement)
+            for key, opt, placement in (("gen", self.gen_opt, self.gen_placement),
+                                        ("disc", self.disc_opt, self.disc_placement)))
         spe = max(int(steps_per_execution), 1)
         stop = False
         dispatches = 0
@@ -961,7 +1020,8 @@ class StyleTTS2Trainer(TrainerBase):
                 self.global_step += n_steps
                 self.tick_profile()
                 if self.global_step // log_every > prev_step // log_every:
-                    self.log_metrics({f"training/{k}": v for k, v in losses.items()},
+                    self.log_metrics({f"training/{k}": v
+                                      for k, v in self._global_mean(losses).items()},
                                      self.global_step)
                 if self.global_step >= max_steps:
                     stop = True
@@ -970,6 +1030,7 @@ class StyleTTS2Trainer(TrainerBase):
                 raise RuntimeError("Epoch produced no training batches — the dataset is "
                                    "empty (check filelists and preprocessed artifacts).")
             self.epoch += 1
+            losses = self._global_mean(losses)
             val = self.validate()
             if val:
                 self.log_metrics(val, self.global_step)

@@ -1,5 +1,7 @@
 """Host-side batch shaping before a batch goes to the card (copy of
-everyvoice_tpu/parallel/mesh.py:187-264)."""
+everyvoice_tpu/parallel/mesh.py:187-264). A multi-device run pads the
+global batch to the device count here and then takes each rank's rows
+(``mesh.local_rows``)."""
 
 from __future__ import annotations
 

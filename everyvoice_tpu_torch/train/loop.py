@@ -61,10 +61,18 @@ from everyvoice_tpu_torch.models.hifigan.model import (
 from everyvoice_tpu_torch.models.layers import GlobalStyleTokens, set_dropout_generator
 from everyvoice_tpu_torch.parallel import (
     compress_for_transfer,
+    data_parallel,
+    fresh_sharded_opt_state,
+    full_opt_state,
+    local_rows,
+    mean_denominator,
     pad_batch_for_eval,
     pad_batch_to_devices,
+    shard_opt_state_like,
+    shard_params,
     stack_batches,
 )
+from everyvoice_tpu_torch.parallel.sharding import Placement, gathered
 from everyvoice_tpu_torch.train.checkpoint import load_checkpoint, resume_mode, save_checkpoint
 from everyvoice_tpu_torch.train.optim import build_optimizer, learning_rate_at
 from everyvoice_tpu_torch.train.tensorboard import SummaryWriter
@@ -160,20 +168,43 @@ def init_hifigan_parameters(module: nn.Module, gen: torch.Generator) -> None:
 
 
 class TrainerBase:
+    """On a ``mesh`` (``parallel.setup_mesh``) a trainer is one rank of a
+    multi-device run: each rank reads the same global batches and takes its
+    own rows, its losses are its share of the global batch's, gradients are
+    reduced across the ranks before each update (``Placement``), logged
+    losses are the global ones, and only rank 0 writes ``hparams.yaml``,
+    metrics, TensorBoard events and checkpoints; ``fsdp`` shards the
+    parameters and optimizer state ZeRO-3-style. Without a mesh it runs on
+    ``device`` alone."""
+
     model_name = "Base"
     last_checkpoint_name = "last.ckpt"
 
-    def __init__(self, config: dict, run_dir: Optional[Path] = None, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, config: dict, run_dir: Optional[Path] = None, device=None, mesh=None,
+                 fsdp: bool = False):
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self.mesh = mesh
+        self.fsdp = fsdp
+        self.n_devices = 1 if mesh is None else mesh.world
+        self.data_size = 1 if mesh is None else mesh.data_size
+        self.data_rank = 0 if mesh is None else mesh.data_rank
+        self.is_main = mesh is None or mesh.is_main
         self.config = config
         self.training_config = config["training"]
         if run_dir is None:
             lc = self.training_config["logger"]
             sub_dir = resolve_sub_dir_callable(lc["sub_dir_callable"])()
             run_dir = Path(lc["save_dir"]) / lc["name"] / lc["version"] / sub_dir
+        if self.n_devices > 1:  # rank 0's (a sub_dir may be a timestamp)
+            import torch.distributed as dist
+
+            shared = [str(run_dir)]
+            dist.broadcast_object_list(shared, src=0)
+            run_dir = shared[0]
         self.run_dir = Path(run_dir)
         self.ckpt_dir = self.run_dir / "checkpoints"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.metrics_path = self.run_dir / "metrics.jsonl"
         self.global_step = 0
         self.epoch = 0
@@ -183,8 +214,10 @@ class TrainerBase:
         self._ckpt_error: Optional[BaseException] = None
         self._profiler = None
         self._profile_remaining = 0
-        self.save_hparams()
-        self.tb_writer = SummaryWriter(self.run_dir)
+        self.tb_writer = None
+        if self.is_main:
+            self.save_hparams()
+            self.tb_writer = SummaryWriter(self.run_dir)
 
     # -- bookkeeping -----------------------------------------------------
     def save_hparams(self) -> None:
@@ -192,6 +225,9 @@ class TrainerBase:
             yaml_lite.dump(model_checkpoint_dump(self.config)), encoding="utf8")
 
     def log_metrics(self, metrics: dict, step: int) -> None:
+        """Append to ``metrics.jsonl`` and the event file (rank 0)."""
+        if not self.is_main:
+            return
         values = _host_floats(metrics)
         record = {"step": step, "epoch": self.epoch, "time": time.time(), **values}
         with open(self.metrics_path, "a", encoding="utf8") as f:
@@ -201,7 +237,10 @@ class TrainerBase:
 
     def maybe_checkpoint(self, metric_value: float, params: dict, opt_state: dict) -> None:
         """Write ``last.ckpt``, and a tagged checkpoint if ``metric_value``
-        ranks among the ``save_top_k_ckpts`` best; host trees in."""
+        ranks among the ``save_top_k_ckpts`` best; host trees in (rank 0;
+        the other ranks' ``host_state`` is None)."""
+        if not self.is_main:
+            return
         keep = self.training_config["save_top_k_ckpts"]
         self._save(self.ckpt_dir / self.last_checkpoint_name, params, opt_state)
         if keep <= 0:
@@ -251,11 +290,50 @@ class TrainerBase:
             error, self._ckpt_error = self._ckpt_error, None
             raise RuntimeError("writing a checkpoint failed") from error
 
+    # -- the mesh --------------------------------------------------------
+    def _global_mean(self, values: dict) -> dict:
+        """``values``' tensors averaged over the batch ranks, in one
+        all-reduce: the global batch's losses, each rank's being its share
+        (``parallel.collectives``); as they are with one batch rank."""
+        keys = [k for k, v in values.items() if isinstance(v, torch.Tensor)]
+        if self.data_size == 1 or not keys:
+            return values
+        import torch.distributed as dist
+
+        stacked = torch.stack([values[k].detach().float().reshape(()) for k in keys])
+        dist.all_reduce(stacked, group=self.mesh.batch_group)
+        stacked /= self.data_size
+        return {**values, **dict(zip(keys, stacked.unbind()))}
+
+    def _rank_seed(self, seed: int) -> int:
+        """A per-rank seed: ``seed`` on the first batch rank, so ranks draw
+        different dropout masks and one device draws as before."""
+        return seed + self.data_rank
+
+    def _local_rows(self, host_batch: dict) -> dict:
+        """This rank's rows of a host batch padded to the device count."""
+        return local_rows(host_batch, self.mesh)
+
+    def _rank_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of rows of a tensor over the global batch."""
+        per = t.shape[0] // self.data_size
+        return t[self.data_rank * per:(self.data_rank + 1) * per]
+
+    @staticmethod
+    def _update(optimizer, placement: Placement, grads: dict, state: dict) -> torch.Tensor:
+        """Reduce ``grads`` over the ranks and step ``placement``'s owned
+        parameters (FSDP shards: ``placement.gather()`` refreshes the whole
+        ones); returns the global gradient norm."""
+        grads = placement.reduce_grads(grads)
+        if placement.norm_fn is None:
+            return optimizer.step(placement.owned, grads, state)
+        return optimizer.step(placement.owned, grads, state, global_norm=placement.norm_fn)
+
     # -- profiling -------------------------------------------------------
     def start_profile(self, profile_steps: int) -> None:
         """Trace the next ``profile_steps`` train steps with torch.profiler
         into ``<run_dir>/profile/trace.json`` (Chrome trace format)."""
-        if profile_steps <= 0:
+        if profile_steps <= 0 or not self.is_main:
             return
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -297,7 +375,8 @@ class TrainerBase:
         group: list = []
         for host_batch in self._epoch_batches():
             host_batch.pop("basenames", None)
-            host_batch = compress_for_transfer(pad_batch_to_devices(host_batch, 1), self.compressed)
+            host_batch = self._local_rows(pad_batch_to_devices(host_batch, self.n_devices))
+            host_batch = compress_for_transfer(host_batch, self.compressed)
             if spe <= 1:
                 yield 1, to_device(host_batch, self.device)
                 continue
@@ -334,7 +413,7 @@ class TrainerBase:
                 self.global_step += n_steps
                 self.tick_profile()
                 if self.global_step // log_every > prev_step // log_every:
-                    metrics = {f"training/{k}": v for k, v in losses.items()}
+                    metrics = {f"training/{k}": v for k, v in self._global_mean(losses).items()}
                     metrics["training/lr"] = self._learning_rate()
                     self.log_metrics(metrics, self.global_step)
                 if self.global_step // val_interval > prev_step // val_interval:
@@ -385,7 +464,9 @@ class TrainerBase:
 class FastSpeech2Trainer(TrainerBase):
     """Trains FastSpeech2 on ``dataset`` (a ``FastSpeech2Dataset``),
     validating on ``val_dataset``, on ``device`` (the CUDA card unless the
-    caller names the CPU)."""
+    caller names the CPU), or as one rank of ``mesh``: data parallel,
+    ``fsdp``, or tensor parallel over the mesh's model axis
+    (``parallel.FS2_PARAM_RULES``)."""
 
     model_name = "FastSpeech2"
     compressed = ("mel", "attn_prior")
@@ -393,8 +474,8 @@ class FastSpeech2Trainer(TrainerBase):
     def __init__(self, config: dict, dataset, val_dataset, lang2id: dict, speaker2id: dict,
                  stats: Optional[dict] = None, run_dir: Optional[Path] = None,
                  gradient_clip_val: Optional[float] = None, compute_dtype: str = "auto",
-                 device=None):
-        super().__init__(config, run_dir=run_dir, device=device)
+                 device=None, mesh=None, fsdp: bool = False):
+        super().__init__(config, run_dir=run_dir, device=device, mesh=mesh, fsdp=fsdp)
         self.dataset = dataset
         self.val_dataset = val_dataset
         self.lang2id = lang2id
@@ -409,12 +490,13 @@ class FastSpeech2Trainer(TrainerBase):
             )
         self.model = model.to_empty(device=self.device)
         self.params = dict(self.model.named_parameters())
+        self.placement = Placement(self.params)  # laid out on the mesh by place()
         self.optimizer = build_optimizer(self.training_config["optimizer"], self.model.dim,
                                          gradient_clip_val)
         name = self.training_config["logger"]["name"]
         # crc32, not hash(): str.__hash__ is salted per process.
         self.dropout_generator = torch.Generator(self.device).manual_seed(
-            zlib.crc32(name.encode("utf8")))
+            self._rank_seed(zlib.crc32(name.encode("utf8"))))
         set_dropout_generator(self.model, self.dropout_generator)
         self.opt_state: Optional[dict] = None
         self.grad_norm: Optional[torch.Tensor] = None
@@ -451,14 +533,22 @@ class FastSpeech2Trainer(TrainerBase):
         """One optimizer step on a device batch; returns its (detached)
         losses, computed before the update."""
         self.model.train()
-        with no_tf32():
-            losses = self.losses(batch, bin_ramp)
-            for p in self.params.values():
-                p.grad = None
-            losses["total"].backward()
-            grads = {n: p.grad for n, p in self.params.items()}
-            self.grad_norm = self.optimizer.step(self.params, grads, self.opt_state)
+        with no_tf32(), data_parallel(self.mesh):
+            with gathered(self.placement):
+                losses = self.losses(batch, bin_ramp)
+                for p in self.params.values():
+                    p.grad = None
+                losses["total"].backward()
+                grads = {n: p.grad for n, p in self.params.items()}
+            self.grad_norm = self._update(self.optimizer, self.placement, grads, self.opt_state)
         return {k: v.detach() for k, v in losses.items()}
+
+    def place(self) -> None:
+        """Lay the (loaded) parameters out on the mesh: replicated, FSDP
+        shards, or tensor-parallel blocks."""
+        self.placement = shard_params(dict(self.model.named_parameters()), self.mesh,
+                                      model=self.model, fsdp=self.fsdp)
+        self.params = self.placement.params
 
     def init_params(self, seed: int = 0) -> None:
         """flax-like initial parameters, drawn on the host from a generator
@@ -482,9 +572,14 @@ class FastSpeech2Trainer(TrainerBase):
         return {n: v.to(self.device) for n, v in state.items()}
 
     def host_state(self) -> tuple:
-        """(params tree, optimizer tree) on the host, in the JAX layouts."""
-        return (self._to_flax(self.model.state_dict()),
-                self.optimizer.to_optax(self.opt_state, self._to_flax))
+        """(params tree, optimizer tree) on the host, in the JAX layouts,
+        whole tensors gathered from every rank; (None, None) off rank 0."""
+        with gathered(self.placement):
+            state = self.placement.full(self.model.state_dict())
+        opt_state = full_opt_state(self.opt_state, self.placement)
+        if not self.is_main:
+            return None, None
+        return self._to_flax(state), self.optimizer.to_optax(opt_state, self._to_flax)
 
     def _epoch_batches(self):
         t = self.training_config
@@ -508,37 +603,45 @@ class FastSpeech2Trainer(TrainerBase):
         tree, opt_tree = self.load_finetune_checkpoint()
         if tree is not None:
             self.load_params(tree)
-        self.opt_state = (self.optimizer.init(self.params) if opt_tree is None
-                          else self.optimizer.from_optax(opt_tree, self._from_flax))
+        restored = None if opt_tree is None else self.optimizer.from_optax(opt_tree,
+                                                                          self._from_flax)
+        self.place()
+        self.opt_state = (fresh_sharded_opt_state(self.optimizer, self.placement)
+                          if restored is None else shard_opt_state_like(restored, self.placement))
         self._train_loop(max_steps if max_steps is not None else self.training_config["max_steps"],
                          log_every, profile_steps, steps_per_execution)
         return self.model
 
     @torch.no_grad()
     def validate(self) -> dict:
-        """Mean validation losses over real rows: batches of ``batch_size``,
-        the last padded up to it with 0-weighted rows."""
+        """Mean validation losses over real rows: batches of ``batch_size``
+        (at least the device count), the last padded up to it with
+        0-weighted rows, each split over the batch ranks."""
         self.model.eval()
         totals: dict = {}
         rows = 0
-        batch_size = max(self.training_config["batch_size"], 1)
-        for batch in self.val_dataset.batches(batch_size, shuffle=False):
-            batch.pop("basenames", None)
-            batch, n_true = pad_batch_for_eval(batch, 1, batch_size)
-            batch = to_device(compress_for_transfer(batch, self.compressed), self.device)
-            with no_tf32():
-                losses = _host_floats(self.losses(batch, 1.0))
-            for k, v in losses.items():
-                totals[k] = totals.get(k, 0.0) + v * n_true
-            rows += n_true
-        self.log_validation_media()
+        batch_size = max(self.training_config["batch_size"], self.n_devices, 1)
+        with gathered(self.placement), data_parallel(self.mesh):
+            for batch in self.val_dataset.batches(batch_size, shuffle=False):
+                batch.pop("basenames", None)
+                batch, n_true = pad_batch_for_eval(batch, self.n_devices, batch_size)
+                batch = to_device(compress_for_transfer(self._local_rows(batch), self.compressed),
+                                  self.device)
+                with no_tf32():
+                    losses = _host_floats(self._global_mean(self.losses(batch, 1.0)))
+                for k, v in losses.items():
+                    totals[k] = totals.get(k, 0.0) + v * n_true
+                rows += n_true
+            self.log_validation_media()
         return {k: v / max(rows, 1) for k, v in totals.items()}
 
     @torch.no_grad()
     def log_validation_media(self) -> None:
         """The first validation item's predicted and target mels as images,
         and, with ``training.vocoder_path``, its predicted audio through the
-        port's HiFiGAN generator (``mrf_stage`` on a card)."""
+        port's HiFiGAN generator (``mrf_stage`` on a card). Every rank runs
+        the forward (tensor-parallel blocks need the whole model axis); rank
+        0 writes."""
         try:
             batch = next(self.val_dataset.batches(1, shuffle=False))
         except StopIteration:
@@ -549,6 +652,8 @@ class FastSpeech2Trainer(TrainerBase):
         out = self.model(device_batch["text"], device_batch["text_lengths"],
                          **self._model_kwargs(device_batch))
         pred = out.get("postnet_mel", out["mel"])
+        if not self.is_main:
+            return
         n_frames = int(batch["mel_lengths"][0])
         step = self.global_step
         self.tb_writer.add_mel("validation/mel_predicted", pred[0].cpu().numpy()[:n_frames], step)
@@ -586,15 +691,18 @@ class HiFiGANTrainer(TrainerBase):
     ``torch.autograd.grad`` over one network's parameters, so neither step
     touches the other's. During the warmup the discriminator update is
     skipped whole (no decay, clip or count), and its loss is still logged.
-    Validation runs the inference forward, so ``mrf_stage`` runs there."""
+    Validation runs the inference forward, so ``mrf_stage`` runs there. On a
+    ``mesh`` both networks are replicated (data parallel; a tensor-parallel
+    strategy's model-axis ranks compute the same rows, as the JAX trainer's
+    do) or, with ``fsdp``, sharded."""
 
     model_name = "HiFiGAN"
     compressed = ("mel",)
 
     def __init__(self, config: dict, dataset, val_dataset, run_dir: Optional[Path] = None,
                  gradient_clip_val: Optional[float] = None, compute_dtype: str = "auto",
-                 device=None):
-        super().__init__(config, run_dir=run_dir, device=device)
+                 device=None, mesh=None, fsdp: bool = False):
+        super().__init__(config, run_dir=run_dir, device=device, mesh=mesh, fsdp=fsdp)
         self.dataset = dataset
         self.val_dataset = val_dataset
         self.compute_dtype = resolve_compute_dtype(compute_dtype, self.device)
@@ -605,6 +713,8 @@ class HiFiGANTrainer(TrainerBase):
         self.discriminators = discriminators.to_empty(device=self.device)
         self.gen_params = dict(self.generator.named_parameters())
         self.disc_params = dict(self.discriminators.named_parameters())
+        self.gen_placement = Placement(self.gen_params)  # laid out on the mesh by place()
+        self.disc_placement = Placement(self.disc_params)
         t = self.training_config
         self.gen_opt = build_optimizer(t["optimizer"], gradient_clip_val=gradient_clip_val)
         self.disc_opt = build_optimizer(t["optimizer"], gradient_clip_val=gradient_clip_val)
@@ -639,12 +749,14 @@ class HiFiGANTrainer(TrainerBase):
         return loss, dict(zip(self.disc_params, grads))
 
     def update_discriminators(self, grads: dict) -> None:
-        self.disc_grad_norm = self.disc_opt.step(self.disc_params, grads, self.disc_opt_state)
+        self.disc_grad_norm = self._update(self.disc_opt, self.disc_placement, grads,
+                                           self.disc_opt_state)
         if self.gan_type == "wgan":  # every leaf, weight-norm scales and biases too
             with torch.no_grad():
-                params = list(self.disc_params.values())
+                params = list(self.disc_placement.owned.values())
                 torch._foreach_clamp_min_(params, -self.wgan_clip)
                 torch._foreach_clamp_max_(params, self.wgan_clip)
+        self.disc_placement.gather()  # the generator's loss sees the update
 
     def generator_grads(self, audio: torch.Tensor, fake: torch.Tensor, gan_on: bool) -> tuple:
         """(generator losses, gradients of their total by parameter name):
@@ -666,14 +778,15 @@ class HiFiGANTrainer(TrainerBase):
         return losses, dict(zip(self.gen_params, grads))
 
     def update_generator(self, grads: dict) -> None:
-        self.grad_norm = self.gen_opt.step(self.gen_params, grads, self.gen_opt_state)
+        self.grad_norm = self._update(self.gen_opt, self.gen_placement, grads, self.gen_opt_state)
 
     def train_step(self, batch: dict, gan_on: bool) -> dict:
         """One GAN step on a device batch; returns its (detached) losses,
         each computed before the update it drives."""
         batch = _decompress(batch)
         audio = batch["audio"]
-        with no_tf32():
+        with no_tf32(), data_parallel(self.mesh), gathered(self.gen_placement,
+                                                           self.disc_placement):
             fake = self.generator.train_forward(batch["mel"])
             d_loss, d_grads = self.discriminator_grads(audio, fake, gan_on)
             if gan_on:
@@ -703,13 +816,25 @@ class HiFiGANTrainer(TrainerBase):
             return {n: v.to(self.device) for n, v in state.items()}
         return convert
 
+    def place(self) -> None:
+        """Lay both networks' (loaded) parameters out on the mesh:
+        replicated, or FSDP shards."""
+        self.gen_placement = shard_params(self.gen_params, self.mesh, fsdp=self.fsdp)
+        self.disc_placement = shard_params(self.disc_params, self.mesh, fsdp=self.fsdp)
+
     def host_state(self) -> tuple:
-        params = hifigan_tree(self.generator.state_dict(), self.discriminators.state_dict(),
-                              self.generator, self.discriminators)
+        """(params tree, optimizer trees) on the host, whole tensors
+        gathered from every rank; (None, None) off rank 0."""
+        with gathered(self.gen_placement, self.disc_placement):
+            gen_state, disc_state = self.generator.state_dict(), self.discriminators.state_dict()
+        gen_opt = full_opt_state(self.gen_opt_state, self.gen_placement)
+        disc_opt = full_opt_state(self.disc_opt_state, self.disc_placement)
+        if not self.is_main:
+            return None, None
+        params = hifigan_tree(gen_state, disc_state, self.generator, self.discriminators)
         return params, {
-            "gen": self.gen_opt.to_optax(self.gen_opt_state,
-                                         partial(torch_to_flax, model=self.generator)),
-            "disc": self.disc_opt.to_optax(self.disc_opt_state,
+            "gen": self.gen_opt.to_optax(gen_opt, partial(torch_to_flax, model=self.generator)),
+            "disc": self.disc_opt.to_optax(disc_opt,
                                            partial(torch_to_flax, model=self.discriminators)),
         }
 
@@ -731,12 +856,16 @@ class HiFiGANTrainer(TrainerBase):
         if tree is not None:
             self.load_params(tree)
         opt_tree = opt_tree or {}
-        self.gen_opt_state = (
-            self.gen_opt.init(self.gen_params) if opt_tree.get("gen") is None
-            else self.gen_opt.from_optax(opt_tree["gen"], self._from_flax_for(self.generator)))
-        self.disc_opt_state = (
-            self.disc_opt.init(self.disc_params) if opt_tree.get("disc") is None
-            else self.disc_opt.from_optax(opt_tree["disc"], self._from_flax_for(self.discriminators)))
+        restored = {key: None if opt_tree.get(key) is None
+                    else opt.from_optax(opt_tree[key], self._from_flax_for(module))
+                    for key, opt, module in (("gen", self.gen_opt, self.generator),
+                                             ("disc", self.disc_opt, self.discriminators))}
+        self.place()
+        self.gen_opt_state, self.disc_opt_state = (
+            fresh_sharded_opt_state(opt, placement) if restored[key] is None
+            else shard_opt_state_like(restored[key], placement)
+            for key, opt, placement in (("gen", self.gen_opt, self.gen_placement),
+                                        ("disc", self.disc_opt, self.disc_placement)))
         self._train_loop(max_steps if max_steps is not None else self.training_config["max_steps"],
                          log_every, profile_steps, steps_per_execution)
         return self.generator
@@ -746,20 +875,22 @@ class HiFiGANTrainer(TrainerBase):
         """The mean mel L1 over real rows of the validation segments (each
         from frame 0), through the generator's inference forward, in
         batches of ``batch_size``, the last padded up to it with 0-weighted
-        rows."""
+        rows, each batch split over the batch ranks."""
         total, rows = 0.0, 0
-        batch_size = max(self.training_config["batch_size"], 1)
-        for batch in self.val_dataset.segment_batches(batch_size, self.segment_size,
-                                                      shuffle=False):
-            batch.pop("basenames", None)
-            batch, n_true = pad_batch_for_eval(batch, 1, batch_size)
-            batch = _decompress(to_device(compress_for_transfer(batch, self.compressed),
-                                          self.device))
-            fake = self.generator(batch["mel"])
-            with no_tf32():
-                diff = (self._log_mel(batch["audio"]) - self._log_mel(fake)).abs()
-            weights = batch["row_weights"]
-            loss = (diff.mean(dim=(1, 2)) * weights).sum() / weights.sum().clamp(min=1.0)
-            total += float(loss) * n_true
-            rows += n_true
+        batch_size = max(self.training_config["batch_size"], self.n_devices, 1)
+        with gathered(self.gen_placement), data_parallel(self.mesh):
+            for batch in self.val_dataset.segment_batches(batch_size, self.segment_size,
+                                                          shuffle=False):
+                batch.pop("basenames", None)
+                batch, n_true = pad_batch_for_eval(batch, self.n_devices, batch_size)
+                batch = _decompress(to_device(compress_for_transfer(
+                    self._local_rows(batch), self.compressed), self.device))
+                fake = self.generator(batch["mel"])
+                with no_tf32():
+                    diff = (self._log_mel(batch["audio"]) - self._log_mel(fake)).abs()
+                weights = batch["row_weights"]
+                loss = (diff.mean(dim=(1, 2)) * weights).sum() / mean_denominator(weights.sum(),
+                                                                                  1.0)
+                total += float(self._global_mean({"total": loss})["total"]) * n_true
+                rows += n_true
         return {"total": total / max(rows, 1)}

@@ -50,6 +50,16 @@ def learning_rate_at(optimizer_config: dict, step: int, model_dim: int = 256) ->
     return float(cfg.get("learning_rate") or cfg.get("lr", 0.0))
 
 
+def global_norm_of(names: list, grads: list, global_norm=None) -> torch.Tensor:
+    """The global norm of ``grads``: over these tensors, or through
+    ``global_norm`` (local norms by name → the norm over the whole
+    parameters) where they are shards."""
+    norms = torch._foreach_norm(grads)
+    if global_norm is None:
+        return torch.sqrt(torch.stack(norms).square().sum())
+    return global_norm(dict(zip(names, norms)))
+
+
 def build_optimizer(optimizer_config: dict, model_dim: int = 256,
                     gradient_clip_val: float | None = None) -> "Optimizer":
     """The optimizer an optimizer config section names (noam, adamw, adam or
@@ -85,15 +95,17 @@ class Optimizer:
         return float(np.float32(self.config["learning_rate"]))
 
     @torch.no_grad()
-    def step(self, params: dict, grads: dict, state: dict) -> torch.Tensor:
+    def step(self, params: dict, grads: dict, state: dict, global_norm=None) -> torch.Tensor:
         """Update ``params`` and ``state`` in place from ``grads`` (a missing
         gradient counts as zeros, as optax sees it); returns the global norm
-        of the gradients before the clip."""
+        of the gradients before the clip. Where the parameters are shards,
+        ``global_norm`` maps each leaf's local norm (by name) to the norm
+        over the whole parameters (``Placement.global_norm``)."""
         names = list(params)
         p = [params[n] for n in names]
         g = [grads[n] if grads.get(n) is not None else torch.zeros_like(params[n])
              for n in names]
-        norm = torch.sqrt(torch.stack(torch._foreach_norm(g)).square().sum())
+        norm = global_norm_of(names, g, global_norm)
         if self.clip is not None:
             factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
             g = torch._foreach_mul(g, factor)

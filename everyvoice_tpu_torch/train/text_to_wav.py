@@ -1,6 +1,6 @@
 """Train StyleTTS2 from preprocessed artifacts: the port's counterpart of
 ``everyvoice-tpu train text-to-wav --mode first|second``
-(everyvoice_tpu/cli.py:427-452), without click and on one device.
+(everyvoice_tpu/cli.py:427-452), without click.
 
     from everyvoice_tpu_torch.train.text_to_wav import train_text_to_wav
     trainer = train_text_to_wav(config, mode="first")   # the CUDA card
@@ -35,11 +35,15 @@ def train_text_to_wav(
     compute_precision: str = "auto",
     device=None,
     log_every: int = 10,
+    mesh=None,
+    fsdp: bool = False,
 ) -> StyleTTS2Trainer:
     """Train one StyleTTS2 stage and return its trainer (checkpoints under
     ``trainer.ckpt_dir``). Runs on the CUDA card unless ``device`` names
-    the CPU; raises without a card."""
-    device = resolve_device(device)
+    the CPU; raises without a card. On a ``mesh`` (``parallel.setup_mesh``)
+    this process trains as one of its ranks, ``fsdp`` sharding the
+    parameters and optimizer state."""
+    device = resolve_device(device) if mesh is None else mesh.device
     config = styletts2_config(apply_overrides(config, config_args))
     t = config["training"]
     load = resolve_filelist_loader(t["filelist_loader"])
@@ -50,7 +54,8 @@ def train_text_to_wav(
     vds = StyleTTS2Dataset(val_list, config, text_processor=ds.text_processor)
     trainer = StyleTTS2Trainer(config, ds, vds, lang2id=lang2id, mode=mode,
                                gradient_clip_val=gradient_clip_val,
-                               compute_dtype=compute_precision, device=device)
+                               compute_dtype=compute_precision, device=device,
+                               mesh=mesh, fsdp=fsdp)
     trainer.fit(log_every=log_every, profile_steps=profile_steps,
                 steps_per_execution=steps_per_execution)
     return trainer

@@ -743,14 +743,18 @@ def test_unported_flags_name_their_roadmap_item(world, port_cli, tmp_path):
     cases = [
         (["preprocess", "text-to-spec", fs2, "--device-audio"], "The rest"),
         (["fetch-pretrained", "text-to-wav", "--config-path", st2], "fetch-pretrained"),
-        (["train", "text-to-spec", fs2, "-s", "fsdp"], "Parallelism"),
-        (["train", "text-to-spec", fs2, "-d", "2"], "Parallelism"),
-        (["train", "text-to-spec", fs2, "-n", "2"], "Parallelism"),
     ]
     for args, item in cases:
         rc, _, err = port_cli(*args)
         assert rc == 1 and f"ROADMAP.md, queue 1, '{item}'" in err, (args, err)
     assert port_cli("train", "text-to-spec", fs2, "-a", "tpu")[0] == 1
+    # parallelism is ported: a bad --strategy, --devices or --nodes is a usage error
+    rc, _, err = port_cli("train", "text-to-spec", fs2, "-s", "fsdp2")
+    assert rc == 1 and "Unknown --strategy 'fsdp2'; expected ddp, auto, fsdp" in err
+    assert port_cli("train", "text-to-spec", fs2, "-d", "two")[0] == 1
+    assert port_cli("train", "text-to-spec", fs2, "-n", "0")[0] == 1
+    rc, _, err = port_cli("train", "text-to-spec", fs2, "-a", "cpu", "-d", "3", "-s", "tp2")
+    assert rc == 1 and "tensor-parallel groups of 2" in err
     with pytest.raises(SystemExit) as usage:
         cli.main(["train", "text-to-wav", str(st2), "--mode", "third"])
     assert usage.value.code == 2

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``everyvoice_tpu_torch``,
 running a small CPU synthesis that writes every output format, a small CPU
 preprocess of an English corpus through G2P and phonological features, two
-CPU training steps on its artifacts, a small CPU StyleTTS2 synthesis and a
+CPU training steps on its artifacts (and one more as a rank of a one-rank
+gloo mesh under FSDP), a small CPU StyleTTS2 synthesis and a
 StyleTTS2 training step on the same artifacts, a CTC alignment of a short
 recording with a seeded wav2vec2 directory and one demo request over HTTP
 loads nothing of JAX, flax, pydantic, regex, msgpack, PyYAML, PIL,
@@ -84,6 +85,23 @@ with tempfile.TemporaryDirectory() as tmp:
     }, device="cpu", log_every=1)
     steps = trainer.global_step
     ckpts = sorted(p.name for p in trainer.ckpt_dir.iterdir())
+
+    # the same training as one rank of a gloo mesh under FSDP
+    from everyvoice_tpu_torch.parallel import setup_mesh, teardown
+    mesh = setup_mesh("cpu", 1)
+    try:
+        meshed = train_text_to_spec({
+            "contact": {"contact_name": "Isolation", "contact_email": "iso@example.org"},
+            "model": small, "preprocessing": {"save_dir": str(tmp / "pre")},
+            "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}},
+            "training": {"batch_size": 1, "max_steps": 1,
+                         "training_filelist": str(tmp / "pre" / "training_filelist.psv"),
+                         "validation_filelist": str(tmp / "pre" / "validation_filelist.psv"),
+                         "logger": {"save_dir": str(tmp / "logs"), "name": "meshed"}},
+        }, mesh=mesh, fsdp=True, log_every=1)
+        meshed_steps = (meshed.global_step, mesh.backend, mesh.world)
+    finally:
+        teardown(mesh)
 
     from everyvoice_tpu_torch.config import styletts2_config
     from everyvoice_tpu_torch.models.styletts2.model import StyleTTS2
@@ -190,7 +208,7 @@ with tempfile.TemporaryDirectory() as tmp:
 roots = sorted({name.split(".")[0] for name in sys.modules})
 print(json.dumps({"roots": roots, "written": len(written), "specs": specs, "pfs": pfs,
                   "samples": [len(r["wav"]) for r in results], "steps": steps,
-                  "ckpts": ckpts, "st2_samples": st2_samples, "st2_ckpts": st2_ckpts,
+                  "ckpts": ckpts, "meshed_steps": meshed_steps, "st2_samples": st2_samples, "st2_ckpts": st2_ckpts,
                   "safetensors_layers": safetensors_layers, "regime2_ckpts": regime2_ckpts,
                   "regime2_slm": regime2_slm, "segments": len(segments),
                   "extracted": extracted, "demo_status": demo_status, "demo_wav": demo_wav}))
@@ -209,6 +227,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert report["specs"] == report["pfs"] == 2
     assert all(n > 0 for n in report["samples"])
     assert report["steps"] == 2 and "last.ckpt" in report["ckpts"]
+    assert report["meshed_steps"] == [1, "gloo", 1]
     assert 0 < report["st2_samples"] <= 16 * 256 and report["st2_samples"] % 256 == 0
     assert "stage-1-last.ckpt" in report["st2_ckpts"]
     assert report["safetensors_layers"] == 1
