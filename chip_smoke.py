@@ -101,7 +101,7 @@ Phases, any failure of which exits nonzero:
 12. StyleTTS2 training at full width (hidden 512, style 128, the 512-channel
     AdaIN iSTFT decoder, MPD periods 2/3/5/7/11 and MSD 3 scales, batch 2,
     ``max_len`` 800, clips of 320 frames, bf16) through ``cli.main`` from
-    another working directory: a seeded 24-utterance project with an
+    another working directory: a seeded 8-utterance project with an
     out-of-domain text file; ``preprocess text-to-wav`` (the ood step
     included; every feature batch's log-mel held to the plain version);
     ``train text-to-wav --mode first`` (2 epochs, the TMA from epoch 1) and
@@ -113,12 +113,15 @@ Phases, any failure of which exits nonzero:
     (clips of 64 frames; a Viterbi tie shared only where ``path_tie`` proves
     it); a step split by CUDA events and torch.profiler; and the trained
     checkpoint served through ``synthesize text-to-wav`` with no device
-    given, then its 1- and 16-text requests;
+    given, then its 1-text request. Cut to make room for phase 17: 8
+    utterances, not 24 (3 steps an epoch, not 10, the trainers logging
+    every 3), and no 16-text request from the trained checkpoint;
 13. StyleTTS2 training with its pretrained components at full width:
     seeded files in the published formats and geometries (the JDC pitch
     network, the ASR aligner, the multilingual PL-BERT, WavLM base plus,
-    written by ``onchip.write_pretrained_components``), a 24-utterance
-    project with out-of-domain text, and through ``cli.main`` with the
+    written by ``onchip.write_pretrained_components``), an 8-utterance
+    project with out-of-domain text (cut from 24 to make room for phase 17:
+    3 steps an epoch, not 10, logged every 3), and through ``cli.main`` with the
     ``-c`` overrides ``fetch-pretrained`` would print: ``preprocess
     text-to-wav`` (every feature batch's log-mel held to the plain
     version), both stages (2 epochs each; the ASR aligner's targets from
@@ -172,7 +175,28 @@ Phases, any failure of which exits nonzero:
     steps under ddp and fsdp, each step's losses and gradient norms and
     each network's update norm held to the one-process steps on the
     concatenated batch (1e-3 relative), with each rank's peak memory;
-17. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+17. a project from nothing (``project_phase``): a seeded corpus of 256
+    utterances at 48,000 Hz (3–10 s, about 1,660 s of audio) with 4 quiet
+    ones under the −36 LUFS gate and 2 stereo ones; ``python -m
+    everyvoice_tpu_torch new-project`` as a process answering from standard
+    input, its five config files and filelist loaded back through
+    ``config_files.py``; ``preprocess text-to-spec --device-audio`` as a
+    process with no device given (it must land on the card), every default
+    step, outputs at 22,050 and 44,100 Hz (48,000→22,050 and →44,100 on the
+    card), and the same through ``cli.main`` on the host audio path into a
+    second save dir: every audio artifact of the two within 1 LSB, the same
+    rows, the 4 quiet files rejected by both, the spec, energy, pitch and
+    attention artifacts' shapes and finiteness, ``log_mel`` launched once a
+    feature batch and each batch held to the plain version; the audio
+    step's wall and audio seconds a wall second on each path, the bytes
+    each way, the bucket shapes and the peak memory; DIO on 16 of the
+    project's clips on the card against the CPU (voicing equal on 99% of
+    frames, median F0 gap under 0.1 Hz where both voice) and on a vibrato
+    tone (median error under 0.5 Hz), timed beside the YIN tracker; the
+    segment samplers with given starts equal on the card and the CPU;
+18. print the kernels line, the card line, and last ``{"ok": true, ...}``.
+
+Each phase's wall seconds are printed as it ends (``phase N (...): s``).
 
 It imports nothing of JAX or of ``everyvoice_tpu``.
 """
@@ -756,6 +780,12 @@ def training_config(root: Path, cfg: dict, voc_path: Path, version: str, **train
     }
 
 
+# The profiler's own bookkeeping ops, which torch.profiler's event list skips.
+UNTRACED = ("[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+            "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+            "aten::is_leaf", "aten::output_nr", "aten::_version")
+
+
 def trace(fn) -> dict:
     """``fn`` under torch.profiler: its CUDA kernel launches, their summed
     device time and the traced wall (the profiler's own host overhead
@@ -767,15 +797,20 @@ def trace(fn) -> dict:
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # The raw events, with the ones prof.events() leaves out left out too:
+    # parsing them into prof.events() takes about 20 s for a StyleTTS2
+    # step's 300,000 events, much longer than the step.
+    events = [e for e in prof.profiler.kineto_results.events()
+              if not getattr(e, "is_hidden_event", lambda: False)()
+              and e.name() not in UNTRACED]
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA]
     if not kernels:
         return {"kernels": None, "busy_ms": None, "wall_ms": None}
-    start = min(e.time_range.start for e in events)
-    end = max(e.time_range.end for e in events)
+    start = min(e.start_ns() for e in events)
+    end = max(e.end_ns() for e in events)
     return {"kernels": len(kernels),
-            "busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-            "wall_ms": (end - start) / 1e3}
+            "busy_ms": sum(e.duration_ns() for e in kernels) / 1e6,
+            "wall_ms": (end - start) / 1e6}
 
 
 def split_step(trainer) -> dict:
@@ -2143,7 +2178,10 @@ def styletts2_phase(root: Path, card: str) -> dict:
     return {"requests": rows, "precision": precision, "split": split, "row": row}
 
 
-ST2_UTTERANCES = 24    # 21 for training (10 steps of 2 an epoch), 3 for validation
+ST2_UTTERANCES = 8     # 7 for training (3 steps of 2 an epoch), 1 for validation
+# The trainers log every epoch's last step (the CLI's interval, 10 steps, is
+# longer than an epoch here), so each epoch's losses are checked.
+ST2_LOG_EVERY = 3
 ST2_EPOCHS = 2         # each stage; the TMA (stage 1) and the diffusion (stage 2) from epoch 1
 ST2_RESUME_STEPS = 2
 ST2_F32_SEGMENT = 64   # decoder frames of the float32 card-vs-CPU step (320 in training)
@@ -2410,7 +2448,11 @@ def st2_training_phase(root: Path, card: str) -> dict:
     two steps resumed from ``stage-2-last.ckpt``; each run checked; a
     float32 step on the card against the CPU's; a step split; and the
     trained stage-2 checkpoint served through ``synthesize text-to-wav``
-    with no device given, then the 1- and 16-text requests."""
+    with no device given, then the 1-text request. Cut to make room for
+    phase 17: ``ST2_UTTERANCES`` 8, not 24 (3 steps an epoch, not 10; one
+    validation utterance, not 3; the trainers log every ``ST2_LOG_EVERY``
+    steps, an epoch's end, where the CLI logs every 10), and no 16-text
+    request from the trained checkpoint; every check is kept."""
     import contextlib
     import io
 
@@ -2453,7 +2495,7 @@ def st2_training_phase(root: Path, card: str) -> dict:
 
     def recording_fit(self, *args, **kwargs):
         trainers.append(self)
-        return plain["fit"](self, *args, **kwargs)
+        return plain["fit"](self, *args, **{**kwargs, "log_every": ST2_LOG_EVERY})
 
     def timed_step(self, *args, **kwargs):
         if self not in first_weights:  # the weights the run starts from
@@ -2536,10 +2578,14 @@ def st2_training_phase(root: Path, card: str) -> dict:
 
     # float32 card vs CPU, a step split, and the trained checkpoint served
     config = load_config_from_path("text-to-wav", cfg_path)
+    t0 = time.perf_counter()
     f32 = st2_float32_card_vs_cpu(config, stage2.ckpt_dir / "stage-2-last.ckpt", work)
+    walls["float32 card vs cpu"] = time.perf_counter() - t0
     batch = next(stage2.dataset.batches(2, shuffle=True, seed=0, drop_last=True))
     batch.pop("basenames")
+    t0 = time.perf_counter()
     split = split_st2_step(stage2, to_device(batch, stage2.device))
+    walls["split"] = time.perf_counter() - t0
     split["card"] = card
     print("styletts2 train split " + json.dumps(split), flush=True)
 
@@ -2557,9 +2603,11 @@ def st2_training_phase(root: Path, card: str) -> dict:
     if rc != 0 or devices != ["device: cuda"] or len(list((work / "served" / "wav").glob("*.wav"))) != 1:
         fail(f"synthesize text-to-wav from the trained checkpoint: exit {rc}, {devices}\n"
              f"{err.getvalue()[-2000:]}")
+    t0 = time.perf_counter()
     model, st2_config, tp, _ = st2.load_styletts2_model(ckpt)
-    served = serve_st2(model, st2_config, tp, card, "trained", (REQUESTS[0], REQUESTS[2]))
+    served = serve_st2(model, st2_config, tp, card, "trained", (REQUESTS[0],))
     del model
+    walls["load and serve a request"] = time.perf_counter() - t0
 
     steps = {mode: sorted(s for m, s in step_s[:] if m == mode) for mode in ("first", "second")}
     row = {"utterances": ST2_UTTERANCES, "walls_s": walls,
@@ -2591,9 +2639,11 @@ def st2_pretrained_phase(root: Path, card: str) -> dict:
     """StyleTTS2 training with its pretrained components at full width
     (phase 13): seeded components in their published formats and
     geometries (``onchip.write_pretrained_components``: the JDC, the ASR
-    aligner, the multilingual PL-BERT, WavLM base plus) and a 24-utterance
-    project with out-of-domain text, then through ``cli.main`` from
-    another working directory, every train verb given the ``-c`` overrides
+    aligner, the multilingual PL-BERT, WavLM base plus) and an 8-utterance
+    project with out-of-domain text (cut from 24 utterances to make room
+    for phase 17: 3 steps an epoch, not 10, logged every 3; every check is
+    kept), then
+    through ``cli.main`` from another working directory, every train verb given the ``-c`` overrides
     that point at the components: ``preprocess text-to-wav`` (the ood step
     included; every feature batch's log-mel held to the plain version),
     ``train text-to-wav --mode first`` then ``--mode second`` (2 epochs
@@ -2660,7 +2710,7 @@ def st2_pretrained_phase(root: Path, card: str) -> dict:
 
     def recording_fit(self, *args, **kwargs):
         trainers.append(self)
-        return plain["fit"](self, *args, **kwargs)
+        return plain["fit"](self, *args, **{**kwargs, "log_every": ST2_LOG_EVERY})
 
     def timed_step(self, *args, **kwargs):
         record = self not in first
@@ -3639,6 +3689,244 @@ def parallel_phase(root: Path, fs2_dir: Path, st2_yaml: Path, voc_path: Path,
     return {"mrf_launches": mrf_launches, "stages": list(stages.values()), "row": row}
 
 
+PROJECT_UTTERANCES = 256  # 3–10 s each at 48,000 Hz, about 1,660 s of audio
+PROJECT_QUIET = 4         # below the −36 LUFS gate: both paths reject them
+PROJECT_STEREO = 2
+PROJECT_SR = 48000
+PROJECT_OUTPUT_SR = 44100  # so both targets resample: 48,000→22,050 and →44,100
+# The new-project wizard's answers on standard input (a menu by its number).
+PROJECT_ANSWERS = ("Smoke Project", "Chip Smoke", "smoke@example.org", "{out}", "{filelist}",
+                   "yes", "0", "0", "0",  # psv, characters, no text processing
+                   "1", "1", "0",  # speaker and language columns, keep the G2P
+                   "{wavs}", "22050", "0", "smoke",
+                   "0", "0", "0")  # no more datasets, validation OOD, yaml
+DIO_ROWS = 16
+DIO_VOICED_AGREE = 0.99  # voicing equal on at least this share of frames, card vs CPU
+DIO_MEDIAN_HZ = 0.1      # median |F0 card − F0 CPU| where both are voiced
+DIO_VIBRATO_HZ = 0.5     # tests/test_dsp.py::TestDioCrossValidation's bound
+
+
+def project_phase(root: Path, card: str) -> dict:
+    """A project from nothing (phase 17): a seeded corpus at 48,000 Hz with
+    quiet and stereo files; ``python -m everyvoice_tpu_torch new-project``
+    as a process answering from standard input, its project loaded back;
+    ``preprocess text-to-spec --device-audio`` as a process with no device
+    named (every default step, outputs at 22,050 and 44,100 Hz), and the
+    same through ``cli.main`` on the host audio path into a second save dir;
+    the artifacts of the two compared (audio within 1 LSB, the same rows,
+    the quiet files rejected by both), the features checked and every
+    feature batch's log-mel held to the plain version; then DIO on the card
+    against the CPU on 16 of the project's clips and on a vibrato tone, its
+    time beside the YIN tracker's, and the segment samplers card against
+    CPU."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from everyvoice_tpu_torch import cli
+    from everyvoice_tpu_torch.config_files import load_config_from_path
+    from everyvoice_tpu_torch.dsp.audio_io import read_wav
+    from everyvoice_tpu_torch.dsp.dio import estimate_f0_dio
+    from everyvoice_tpu_torch.dsp.pitch import estimate_f0
+    from everyvoice_tpu_torch.dsp.segments import get_segments_batched
+    from everyvoice_tpu_torch.onchip import write_corpus
+    from everyvoice_tpu_torch.ops.mel import log_mel
+    from everyvoice_tpu_torch.preprocessor import Preprocessor
+    from everyvoice_tpu_torch.utils import generic_psv_filelist_reader
+
+    t_phase = time.perf_counter()
+    work = root / "project"
+    walls: dict = {}
+    t0 = time.perf_counter()
+    filelist, wavs, audio_s = write_corpus(work / "corpus", PROJECT_UTTERANCES, seed=17,
+                                           sr=PROJECT_SR, n_quiet=PROJECT_QUIET,
+                                           n_stereo=PROJECT_STEREO)
+    walls["corpus"] = time.perf_counter() - t0
+    env = {k: v for k, v in os.environ.items() if k != "EVERYVOICE_DEVICE"}
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+
+    # (b) the wizard as a process
+    answers = "\n".join(a.format(out=work, filelist=filelist, wavs=wavs)
+                        for a in PROJECT_ANSWERS) + "\n"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "everyvoice_tpu_torch", "new-project"],
+                          input=answers, cwd=work, env=env, capture_output=True, text=True,
+                          timeout=300)
+    walls["new-project"] = time.perf_counter() - t0
+    project = work / "Smoke-Project"
+    config_dir = project / "config"
+    if proc.returncode != 0:
+        fail(f"new-project: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+    kinds = {"text-to-spec": "everyvoice-text-to-spec.yaml",
+             "spec-to-wav": "everyvoice-spec-to-wav.yaml",
+             "text-to-wav": "everyvoice-text-to-wav.yaml",
+             "preprocessing": "everyvoice-shared-data.yaml"}
+    loaded = {kind: load_config_from_path(kind, config_dir / name) for kind, name in kinds.items()}
+    rows_in = generic_psv_filelist_reader(project / "smoke-filelist.psv")
+    expect = PROJECT_UTTERANCES + PROJECT_QUIET + PROJECT_STEREO
+    sources = loaded["text-to-spec"]["preprocessing"]["source_data"]
+    if (len(rows_in) != expect or len(sources) != 1 or Path(sources[0]["data_dir"]) != wavs
+            or loaded["text-to-wav"]["training"].get("use_validation_as_ood") is not True
+            or "smoke_characters" not in loaded["text-to-spec"]["text"]["symbols"]):
+        fail(f"new-project's project: {len(rows_in)} rows, sources {sources}")
+
+    # (c) preprocess on the device audio path (a process) and the host path
+    fs2_yaml = config_dir / kinds["text-to-spec"]
+    rate = f"preprocessing.audio.output_sampling_rate={PROJECT_OUTPUT_SR}"
+    cpus = str(min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "everyvoice_tpu_torch", "preprocess",
+                           "text-to-spec", str(fs2_yaml), "--device-audio", "-C", cpus, "-c", rate],
+                          cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    walls["preprocess --device-audio (process)"] = time.perf_counter() - t0
+    err = proc.stderr
+    if proc.returncode != 0 or "device: cuda" not in err.splitlines():
+        fail(f"preprocess --device-audio: exit {proc.returncode}\n{err[-3000:]}")
+    device_audio = json.loads(err.split("device audio: ", 1)[1].splitlines()[0])
+    steps_line = err.split("Finished preprocessing: ", 1)[1].splitlines()[0]
+    device_steps = {k: float(v.rstrip("s")) for k, v in (
+        part.rsplit(" ", 1) for part in steps_line.split("(", 1)[1].split(")", 1)[0].split(", "))}
+    device_save = project / "preprocessed"
+
+    host_save = work / "host-preprocessed"
+    preprocessors = []
+    plain = Preprocessor.preprocess
+
+    def recording_preprocess(self, *args, **kwargs):
+        preprocessors.append(self)
+        return plain(self, *args, **kwargs)
+
+    Preprocessor.preprocess = recording_preprocess
+    log_mel.launches = 0
+    log_mel.fft_launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["preprocess", "text-to-spec", str(fs2_yaml), "-C", cpus, "-c", rate,
+                       "-c", f"preprocessing.save_dir={host_save}"])
+        torch.cuda.synchronize()
+        walls["preprocess host audio (cli.main)"] = time.perf_counter() - t0
+    finally:
+        Preprocessor.preprocess = plain
+    mel_launches, fft_launches = log_mel.launches, log_mel.fft_launches
+    if rc != 0:
+        fail(f"preprocess on the host audio path: exit {rc}")
+    pre = preprocessors[0]
+    if pre.device.type != "cuda":
+        fail(f"the host-path preprocess ran its features on {pre.device}")
+    batches = len(pre.last_batch_shapes)
+    if mel_launches == 0 or mel_launches != batches or fft_launches != batches:
+        fail(f"log_mel launched {mel_launches} times ({fft_launches} through the FFT kernel) "
+             f"for {batches} feature batches")
+
+    # the two paths' artifacts
+    t0 = time.perf_counter()
+    for name in ("filelist.psv", "training_filelist.psv", "validation_filelist.psv"):
+        if (device_save / name).read_bytes() != (host_save / name).read_bytes():
+            fail(f"the device and host audio paths wrote different {name}")
+    summaries = [json.loads((d / "summary.txt").read_text()) for d in (device_save, host_save)]
+    kept = generic_psv_filelist_reader(device_save / "filelist.psv")
+    quiet_kept = [r["basename"] for r in kept if r["basename"].startswith("quiet")]
+    stereo_kept = [r["basename"] for r in kept if r["basename"].startswith("stereo")]
+    if (any(s["audio_empty"] != PROJECT_QUIET for s in summaries) or quiet_kept
+            or len(kept) != PROJECT_UTTERANCES + PROJECT_STEREO
+            or len(stereo_kept) != PROJECT_STEREO
+            or abs(summaries[0]["duration"] - summaries[1]["duration"]) > 1e-6):
+        fail(f"audio step summaries {summaries}; kept {len(kept)} rows, quiet {quiet_kept}")
+    lsb, worst, compared = 1.01 / 32768, 0.0, 0
+    hop = pre.audio_config["fft_hop_size"]
+    for row in kept:
+        item = pre.get_speaker_and_language(row)
+        for sr, step in ((22050, hop), (PROJECT_OUTPUT_SR, hop * PROJECT_OUTPUT_SR // 22050)):
+            rel = pre.create_path(item, "audio", f"audio-{sr}.wav").relative_to(host_save)
+            a, sr_a = read_wav(device_save / rel)
+            b, sr_b = read_wav(host_save / rel)
+            if sr_a != sr or sr_b != sr or a.shape != b.shape or a.shape[1] % step:
+                fail(f"{rel}: {sr_a}/{sr_b} Hz, shapes {a.shape} {b.shape}")
+            worst = max(worst, float(np.abs(a - b).max()))
+            compared += 1
+    if worst > lsb:
+        fail(f"the device audio path's artifacts part from the host path's by {worst * 32768} LSB")
+    for save in (device_save, host_save):
+        for row in generic_psv_filelist_reader(save / "filelist.psv"):
+            item = pre.get_speaker_and_language(row)
+            frames = read_wav(save / pre.create_path(item, "audio", "audio-22050.wav")
+                              .relative_to(host_save))[0].shape[1] // hop
+            arts = [np.load(save / pre.create_path(item, k, n).relative_to(host_save)) for k, n in
+                    (("spec", pre._spec_filename()), ("energy", "energy.npy"),
+                     ("pitch", "pitch.npy"), ("attn", "characters-attn-prior.npy"))]
+            n_tokens = len([t for t in pre.text_processor.split_tokens(row["character_tokens"])
+                            if t])
+            if ([a.shape for a in arts] != [(80, frames), (frames,), (frames,), (frames, n_tokens)]
+                    or not all(np.isfinite(a).all() for a in arts)):
+                fail(f"{save.name}/{row['basename']}: shapes {[a.shape for a in arts]} for "
+                     f"{frames} frames, or not finite")
+    walls["compare and check"] = time.perf_counter() - t0
+    served_mel, _ = check_served_features(pre)
+
+    # (d) DIO and the segment samplers on the card
+    t0 = time.perf_counter()
+    clips = sorted((read_wav(device_save / "audio" / f"{r['basename']}--default--default--"
+                             "audio-22050.wav")[0][0] for r in kept), key=len)[:DIO_ROWS]
+    t_len = max(len(c) for c in clips)
+    batch = torch.zeros(DIO_ROWS, t_len)
+    for i, c in enumerate(clips):
+        batch[i, : len(c)] = torch.from_numpy(c)
+    card_f0 = estimate_f0_dio(batch.cuda(), 22050, hop, interpolate=False).cpu()
+    cpu_f0 = estimate_f0_dio(batch, 22050, hop, interpolate=False)
+    both = (card_f0 > 0) & (cpu_f0 > 0)
+    voicing_agree = ((card_f0 > 0) == (cpu_f0 > 0)).float().mean().item()
+    median_hz = (card_f0[both] - cpu_f0[both]).abs().median().item() if both.any() else math.inf
+    if voicing_agree < DIO_VOICED_AGREE or not median_hz < DIO_MEDIAN_HZ or both.sum() < 100:
+        fail(f"DIO card vs CPU: voicing agrees on {voicing_agree}, median {median_hz} Hz over "
+             f"{int(both.sum())} co-voiced frames")
+    t = np.arange(int(2.0 * 22050)) / 22050
+    f_true = 180 + 10 * np.sin(2 * np.pi * 3 * t)
+    phase = 2 * np.pi * np.cumsum(f_true) / 22050
+    tone = (np.sin(phase) + 0.5 * np.sin(2 * phase) + 0.3 * np.sin(3 * phase)).astype(np.float32)
+    f0 = estimate_f0_dio(torch.from_numpy(tone).cuda(), 22050, 256, interpolate=False).cpu().numpy()
+    centers = np.minimum(np.arange(f0.shape[-1]) * 256, len(tone) - 1)
+    core = f0[10:-10]
+    voiced = core > 0
+    vibrato_err = float(np.median(np.abs(core[voiced] - f_true[centers][10:-10][voiced])))
+    if voiced.mean() <= 0.95 or not vibrato_err < DIO_VIBRATO_HZ:
+        fail(f"DIO on the vibrato tone: voiced {voiced.mean()}, median error {vibrato_err} Hz")
+    x = batch.cuda()
+    dio_ms = cuda_ms(lambda: estimate_f0_dio(x, 22050, hop, interpolate=False), 3)
+    yin_ms = cuda_ms(lambda: estimate_f0(x, 22050, hop, interpolate=False), 3)
+    lengths = torch.tensor([len(c) for c in clips])
+    starts = torch.tensor([(i * 997) % max(len(c) - 8192, 1) for i, c in enumerate(clips)])
+    seg_cpu, _ = get_segments_batched(batch, lengths, 8192, starts=starts)
+    seg_card, _ = get_segments_batched(batch.cuda(), lengths.cuda(), 8192, starts=starts.cuda())
+    if not torch.equal(seg_card.cpu(), seg_cpu):
+        fail("get_segments_batched with given starts differs between the card and the CPU")
+    walls["dio and segments"] = time.perf_counter() - t0
+
+    host_audio_s = pre.last_step_seconds["audio"]
+    kept_s = summaries[1]["duration"]
+    row = {
+        "utterances": expect, "audio_s": audio_s, "kept_audio_s": kept_s, "walls_s": walls,
+        "audio_step_s": {"device": device_steps["audio"], "host": host_audio_s},
+        "audio_s_per_s": {"device": kept_s / device_steps["audio"], "host": kept_s / host_audio_s},
+        "device_steps_s": device_steps, "host_steps_s": pre.last_step_seconds,
+        "transfer_bytes": {"up": device_audio["up"], "down": device_audio["down"]},
+        "bucket_shapes": sorted([list(k), v] for k, v in
+                                Counter((b[0], tuple(b[1]), b[2])
+                                        for b in device_audio["batches"]).items()),
+        "device_audio_peak_mib": device_audio.get("peak_bytes", 0) / 2**20,
+        "artifacts_compared": compared, "max_audio_diff_lsb": worst * 32768,
+        "feature_batches": batches, "log_mel_launches": mel_launches,
+        "dio": {"voicing_agree": voicing_agree, "median_abs_hz": median_hz,
+                "vibrato_median_err_hz": vibrato_err, "dio_ms": dio_ms, "yin_ms": yin_ms,
+                "shape": [DIO_ROWS, t_len]},
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    print("project " + json.dumps(row), flush=True)
+    return {"mel_launches": mel_launches, "fft_launches": fft_launches,
+            "served_mel": served_mel, "row": row}
+
+
 def timed_build(name: str) -> tuple:
     from everyvoice_tpu_torch.ops import _build
 
@@ -3667,14 +3955,23 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    marks = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Print the wall seconds since the last lap."""
+        marks.append(time.perf_counter())
+        print(f"phase {phase}: {marks[-1] - marks[-2]:.1f} s", flush=True)
+
     with ThreadPoolExecutor(max_workers=2) as pool:
         builds = {name: pool.submit(timed_build, name) for name in ("mrf", "mel")}
         for name, future in builds.items():
             seconds, lib = future.result()
             print(f"build: {name}.cu in {seconds:.2f} s -> {lib.name}", flush=True)
+    lap("2 (build)")
 
     gen = torch.Generator().manual_seed(0)
     stages = check_kernel(gen)
+    lap("3 (mrf_stage)")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         tmp = Path(tmp)
@@ -3684,12 +3981,15 @@ def main() -> int:
         served_stages = check_served_stages(synth)
         del synth
         reference_check(fs2_path, voc_path)
+        lap("4 (serving)")
 
         mel_rows = check_mel_kernel(torch.Generator().manual_seed(1))
+        lap("5 (log_mel)")
         prep = preprocess_corpus(tmp, card)
         served_mel, batches = check_served_features(prep["pre"])
         time_feature_program(prep["pre"], batches, mel_rows)
         features_card_vs_cpu(prep["cfg"], batches[max(batches)])
+        lap("6 (preprocessing)")
 
         trained = train_phase(tmp, prep["cfg"], voc_path, card)
         training_launches, training_stages = trained["launches"], trained["stages"]
@@ -3697,17 +3997,30 @@ def main() -> int:
         fs2_ckpt = trained["trainer"].ckpt_dir / "last.ckpt"
         synthesize_trained(fs2_ckpt, voc_path, tmp / "trained")
         del trained
+        lap("7 (FastSpeech2 training)")
         vocoder = vocoder_phase(tmp, prep["cfg"], fs2_ckpt, card)
+        lap("8 (vocoder training)")
         phone = phone_voice_phase(tmp, voc_path, vocoder["ckpt"], char_step_ms,
                                   served["requests"], card)
+        lap("9 (phone-level voice)")
         cli_run = cli_phase(tmp, voc_path, card)
+        lap("10 (command line)")
         styletts2_phase(tmp, card)
+        lap("11 (StyleTTS2 serving)")
         st2_trained = st2_training_phase(tmp, card)
+        lap("12 (StyleTTS2 training)")
         st2_pretrained = st2_pretrained_phase(tmp, card)
+        lap("13 (StyleTTS2 pretrained components)")
         aligner_phase(tmp, card)
+        lap("14 (aligner)")
         demo = demo_phase(tmp, fs2_path, voc_path, card)
+        lap("15 (demo)")
         parallel = parallel_phase(tmp, cli_run["config_dir"], st2_trained["config"], voc_path,
                                   card)
+        lap("16 (multi-device training)")
+        project = project_phase(tmp, card)
+        lap("17 (a project from nothing)")
+    print(f"phases 2-17: {marks[-1] - marks[0]:.1f} s", flush=True)
 
     bf16 = [r for r in stages if r["dtype"] == "bfloat16"]
     kernels = {"kernels": [{
@@ -3746,17 +4059,20 @@ def main() -> int:
         "source": "everyvoice_tpu_torch/ops/csrc/mel.cu",
         "replaces": "everyvoice_tpu/ops/mel_pallas.py:67",
         "launches": (prep["launches"] + phone["mel_launches"] + cli_run["mel_launches"]
-                     + st2_trained["mel_launches"] + st2_pretrained["mel_launches"]),
+                     + st2_trained["mel_launches"] + st2_pretrained["mel_launches"]
+                     + project["mel_launches"]),
         "fft_launches": (prep["fft_launches"] + phone["mel_launches"] + cli_run["mel_launches"]
-                         + st2_trained["fft_launches"] + st2_pretrained["fft_launches"]),
+                         + st2_trained["fft_launches"] + st2_pretrained["fft_launches"]
+                         + project["fft_launches"]),
         "phone_voice_launches": phone["mel_launches"],
         "cli_launches": cli_run["mel_launches"],
         "styletts2_training_launches": st2_trained["mel_launches"],
         "styletts2_pretrained_launches": st2_pretrained["mel_launches"],
+        "project_launches": project["mel_launches"],
         "design": "shared-memory radix-2 Stockham FFT (n_fft a power of two)",
         "max_abs_err": max(r["max_abs_err"] for r in mel_rows + served_mel + phone["served_mel"]
                            + cli_run["served_mel"] + st2_trained["served_mel"]
-                           + st2_pretrained["served_mel"]),
+                           + st2_pretrained["served_mel"] + project["served_mel"]),
         "ms": sum(r["kernel_ms"] for r in mel_rows),
         "plain_ms": sum(r["plain_ms"] for r in mel_rows),
         "bound_ms": sum(r["bound_ms"] for r in mel_rows),

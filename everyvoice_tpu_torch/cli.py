@@ -2,7 +2,9 @@
 ``everyvoice-tpu`` (everyvoice_tpu/cli.py) that the port's slices serve,
 with the same spellings, defaults and exit codes, on ``argparse``.
 
+    python -m everyvoice_tpu_torch new-project
     python -m everyvoice_tpu_torch preprocess text-to-spec config/everyvoice-text-to-spec.yaml
+    python -m everyvoice_tpu_torch preprocess text-to-spec config/...-text-to-spec.yaml --device-audio
     python -m everyvoice_tpu_torch train text-to-spec config/everyvoice-text-to-spec.yaml
     python -m everyvoice_tpu_torch train text-to-wav config/everyvoice-text-to-wav.yaml --mode first
     python -m everyvoice_tpu_torch synthesize from-text last.ckpt -t "Hello." --vocoder-path v.ckpt
@@ -15,7 +17,9 @@ Config files are the JAX package's YAML or JSON project files
 (``config_files.load_config_from_path``); ``-c key.path=value`` overrides
 them. Checkpoints are EVTP files that either package reads.
 
-Every verb that computes runs on the CUDA card and fails without one.
+``new-project`` is the wizard: it reads its answers from standard input,
+so a process can drive it through a pipe. Every verb that computes runs on
+the CUDA card and fails without one.
 ``EVERYVOICE_DEVICE=cpu`` puts every verb on the CPU; ``train``'s and
 ``demo``'s ``-a cpu`` does so for that verb. Flags that ask for what the
 port does not have yet exit non-zero naming the ``ROADMAP.md`` item that
@@ -37,7 +41,6 @@ VERSION = "0.1.0"
 OUTPUT_TYPES = ("wav", "spec", "textgrid", "readalong-xml", "readalong-html")
 STEPS = ("audio", "text", "pfs", "spec", "attn", "energy", "pitch", "ood")
 ROADMAP_ITEMS = {
-    "device_audio": "queue 1, 'The rest' (the preprocessor's device audio path)",
     "fetch_pretrained": "queue 1, 'fetch-pretrained'",
 }
 
@@ -78,11 +81,23 @@ def _load_config(kind: str, path: Path, overrides):
 # verbs
 
 
+def new_project(args) -> int:
+    from everyvoice_tpu_torch.wizard.main_tour import get_main_wizard_tour
+    from everyvoice_tpu_torch.wizard.tour import StepError
+
+    tour = get_main_wizard_tour(trace=args.trace, debug_state=args.debug_state)
+    try:
+        tour.run(resume_from=args.resume_from)
+    except EOFError:
+        raise CLIError("the input ended before the wizard's last question") from None
+    except StepError as e:
+        raise CLIError(str(e)) from None
+    return 0
+
+
 def preprocess(args) -> int:
     from everyvoice_tpu_torch.preprocessor import Preprocessor
 
-    if args.device_audio:
-        raise not_ported("--device-audio", "device_audio")
     if args.debug:
         import logging
 
@@ -98,7 +113,8 @@ def preprocess(args) -> int:
     steps = tuple(s for s in steps if s != "ood")
     pre = Preprocessor(config, device=_device())
     if steps:
-        pre.preprocess(to_process=steps, overwrite=args.overwrite, cpus=args.cpus)
+        pre.preprocess(to_process=steps, overwrite=args.overwrite, cpus=args.cpus,
+                       device_audio=args.device_audio)
     if run_ood:
         ood_texts = _gather_ood_texts(config)
         if ood_texts:
@@ -687,6 +703,13 @@ def build_parser() -> argparse.ArgumentParser:
     verbs = parser.add_subparsers(dest="verb", metavar="COMMAND", required=True)
 
     # The pipeline verbs first, the rest alphabetically (MainCommandOrder).
+    p = verbs.add_parser("new-project", help="Create a new project with a guided wizard.")
+    p.add_argument("-r", "--resume-from", type=_existing, default=None,
+                   help="Resume a saved wizard session.")
+    p.add_argument("--trace", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--debug-state", action="store_true", help=argparse.SUPPRESS)
+    p.set_defaults(run=new_project)
+
     p = verbs.add_parser("preprocess", help="Preprocess a dataset.")
     p.add_argument("model_kind", choices=("text-to-spec", "spec-to-wav", "text-to-wav"))
     p.add_argument("config_path", type=_existing)
@@ -697,7 +720,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Redo all preprocessing even when artifacts exist.")
     p.add_argument("-C", "--cpus", default=1, type=int, help="Host workers for audio IO.")
     p.add_argument("-D", "--debug", action="store_true", help="Enable debug logging.")
-    p.add_argument("--device-audio", action="store_true", help="Not ported yet.")
+    p.add_argument("--device-audio", action="store_true",
+                   help="Gate the loudness, resample and peak-normalize the audio step's "
+                   "clips as bucket-padded batches on the card (int16 both ways where the "
+                   "effects keep the 16-bit grid); decoding, effects and writes stay on the "
+                   "host.")
     p.add_argument("-c", "--config-args", action="append", default=[],
                    help="key.path=value config overrides")
     p.set_defaults(run=preprocess)

@@ -7,7 +7,9 @@ quieter than −36 LUFS, K-weights with the exact two-biquad cascade (scipy
 ``integrated_loudness``, which ``evaluate`` reports, K-weights a tensor on
 its device with the cascade's impulse response truncated to a FIR. Both
 gate alike (``gating_blocks``, ``gated_loudness``): 400 ms blocks at 75%
-overlap, −70 LKFS absolute then −10 LU relative.
+overlap, −70 LKFS absolute then −10 LU relative. ``batched_loudness``, the
+preprocessor's device audio gate, does all of it on the device for a batch
+of rows, in float32 as the JAX function does.
 """
 
 from __future__ import annotations
@@ -117,13 +119,44 @@ def integrated_loudness(audio: torch.Tensor, sample_rate: int) -> float:
     K-weighted by the truncated FIR as a causal float32 ``conv1d``, the block
     mean squares in float64; only the (n_blocks,) energies leave the device
     for the gates."""
-    x = audio.reshape(-1, 1, audio.shape[-1]).float()
-    fir = torch.from_numpy(_k_weighting_fir(sample_rate)).to(x.device).flip(0)
-    with no_tf32():
-        weighted = F.conv1d(F.pad(x, (K_WEIGHTING_TAPS - 1, 0)), fir[None, None])[:, 0]
+    x = audio.reshape(-1, audio.shape[-1]).float()
+    weighted = _k_weighted(x, sample_rate)
     block, padded, starts = gating_blocks(weighted.shape[-1], sample_rate)
     weighted = F.pad(weighted.double(), (0, padded - weighted.shape[-1]))
     csum = F.pad(torch.cumsum(weighted * weighted, dim=-1), (1, 0))
     starts = torch.from_numpy(starts).to(x.device)
     z = (csum[:, starts + block] - csum[:, starts]) / block  # (C, n_blocks)
     return gated_loudness(z.sum(dim=0).cpu().numpy())
+
+
+def _k_weighted(x: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """(N, T) float32 rows through the truncated K-weighting FIR, causal."""
+    fir = torch.from_numpy(_k_weighting_fir(sample_rate)).to(x.device).flip(0)
+    with no_tf32():
+        return F.conv1d(F.pad(x[:, None], (K_WEIGHTING_TAPS - 1, 0)), fir[None, None])[:, 0]
+
+
+def batched_loudness(audio: torch.Tensor, sample_rate: int) -> torch.Tensor:
+    """BS.1770-4 integrated loudness of each row of a (B, 1, T) or (B, C, T)
+    batch → (B,) on its device (counterpart of the JAX
+    ``integrated_loudness`` on (B, C, T)): float32 throughout, over the
+    whole row, padding included; both gates on the device; −inf for a row
+    whose every block is under the absolute gate."""
+    batch, channels, t = audio.shape
+    weighted = _k_weighted(audio.reshape(-1, t).float(), sample_rate)
+    block = int(round(0.400 * sample_rate))
+    step = block // 4
+    weighted = F.pad(weighted, (0, max(block - t, 0)))
+    # Mean square of each 400 ms block, summed over channels: (B, n_blocks).
+    z = F.avg_pool1d((weighted * weighted)[:, None], block, step)[:, 0]
+    z_sum = z.reshape(batch, channels, -1).sum(dim=1)
+    loud_block = -0.691 + 10.0 * torch.log10(torch.clamp(z_sum, min=1e-12))
+    abs_mask = loud_block > -70.0
+    abs_count = torch.clamp(abs_mask.sum(dim=-1), min=1)
+    z_abs = torch.where(abs_mask, z_sum, 0.0).sum(dim=-1) / abs_count
+    gamma_rel = -0.691 + 10.0 * torch.log10(torch.clamp(z_abs, min=1e-12)) - 10.0
+    rel_mask = abs_mask & (loud_block > gamma_rel[:, None])
+    rel_count = torch.clamp(rel_mask.sum(dim=-1), min=1)
+    z_rel = torch.where(rel_mask, z_sum, 0.0).sum(dim=-1) / rel_count
+    lufs = -0.691 + 10.0 * torch.log10(torch.clamp(z_rel, min=1e-12))
+    return torch.where(abs_mask.any(dim=-1), lufs, -torch.inf)

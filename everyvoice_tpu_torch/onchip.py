@@ -43,6 +43,7 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -185,29 +186,46 @@ CORPUS_WORDS = (
 
 
 def write_corpus(root: Path, n_utts: int, seed: int = 0, sr: int = 22050,
-                 language: str = "default") -> tuple:
+                 language: str = "default", n_quiet: int = 0, n_stereo: int = 0) -> tuple:
     """(filelist path, wav directory, audio seconds) of a seeded corpus of
     ``n_utts`` 16-bit utterances of 3–10 s: a noise-modulated tone gliding
     around 110 Hz, loud enough to pass the −36 LUFS gate, with eight words of
     text each, all in ``language`` (a language with a G2P engine, such as
-    ``eng``, gets phones from it). The filelist's columns are
-    basename|characters|speaker|language, the ones the audio step keeps."""
+    ``eng``, gets phones from it). Then ``n_quiet`` utterances of the same
+    kind 50 dB down (below the gate; named ``quietNNNNN``) and ``n_stereo``
+    two-channel ones (``stereoNNNNN``: the tone left, the noise right). The
+    filelist's columns are basename|characters|speaker|language, the ones
+    the audio step keeps."""
     rng = np.random.default_rng(seed)
     wav_dir = root / "wavs"
     wav_dir.mkdir(parents=True, exist_ok=True)
     rows = ["basename|characters|speaker|language"]
     total_seconds = 0.0
-    for i in range(n_utts):
-        seconds = float(rng.uniform(3.0, 10.0))
-        t = np.arange(int(seconds * sr)) / sr
-        total_seconds += t.size / sr
+    kinds = ["utt"] * n_utts + ["quiet"] * n_quiet + ["stereo"] * n_stereo
+
+    def write(i: int, kind: str, n: int, noise: np.ndarray) -> None:
+        t = np.arange(n) / sr
         f0 = 110.0 * (1 + 0.3 * np.sin(2 * np.pi * 0.7 * t + i))
         tone = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / sr)
-        noise = 0.05 * rng.standard_normal(t.size)
         envelope = 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 1.3 * t))
-        write_wav(wav_dir / f"utt{i:05d}.wav", ((tone + noise) * envelope).astype(np.float32), sr)
-        text = " ".join(CORPUS_WORDS[j] for j in rng.integers(0, len(CORPUS_WORDS), 8))
-        rows.append(f"utt{i:05d}|{text}|default|{language}")
+        if kind == "stereo":
+            audio = np.stack([tone * envelope, 4 * noise * envelope])
+        else:
+            audio = (tone + noise) * envelope * (10 ** (-50 / 20) if kind == "quiet" else 1.0)
+        write_wav(wav_dir / f"{kind}{i:05d}.wav", audio.astype(np.float32), sr)
+
+    # The draws in order, the signals and writes on threads (numpy releases
+    # the GIL for whole-array work).
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        futures = []
+        for i, kind in enumerate(kinds):
+            n = int(float(rng.uniform(3.0, 10.0)) * sr)
+            total_seconds += n / sr
+            futures.append(pool.submit(write, i, kind, n, 0.05 * rng.standard_normal(n)))
+            text = " ".join(CORPUS_WORDS[j] for j in rng.integers(0, len(CORPUS_WORDS), 8))
+            rows.append(f"{kind}{i:05d}|{text}|default|{language}")
+        for future in futures:
+            future.result()
     filelist = root / "filelist.psv"
     filelist.write_text("\n".join(rows) + "\n", encoding="utf8")
     return filelist, wav_dir, total_seconds

@@ -7,7 +7,10 @@ Steps, in order, as the JAX package runs them:
    channels, too short, too long or quieter than −36 LUFS, apply the
    dataset's sox effects, resample, mix down, peak-normalize to 0.95, cut
    to a whole number of hops and write 16-bit wavs; write ``summary.txt``,
-   the missing and multichannel reports and the processed filelist;
+   the missing and multichannel reports and the processed filelist. With
+   ``device_audio`` the loudness gate, the resampling and the peak
+   normalization run on the device instead, over bucket-padded batches of
+   each native rate (decoding, effects and writes stay on the host);
 2. **text**: normalize and tokenize the characters and declared phones;
    an ``arpabet`` column becomes IPA phones, and a row with characters but
    no phones, in a language with a G2P engine, gets its phones from G2P;
@@ -26,8 +29,7 @@ Steps, in order, as the JAX package runs them:
 Artifact names and layout are the JAX package's:
 ``{save_dir}/{audio,spec,attn,energy,pitch,pfs}/basename--speaker--language--<name>``.
 ``preprocess_ood`` writes StyleTTS2's out-of-domain sentences under
-``ood/``. Not ported yet (it raises ``NotImplementedError``): the device
-audio path (``device_audio=True``).
+``ood/``.
 """
 
 from __future__ import annotations
@@ -47,10 +49,10 @@ import torch
 from everyvoice_tpu_torch.config import preprocessing_config
 from everyvoice_tpu_torch.device import resolve_device
 from everyvoice_tpu_torch.dsp.audio_io import read_wav, write_wav
-from everyvoice_tpu_torch.dsp.loudness import integrated_loudness_host
+from everyvoice_tpu_torch.dsp.loudness import batched_loudness, integrated_loudness_host
 from everyvoice_tpu_torch.dsp.pitch import estimate_f0
 from everyvoice_tpu_torch.dsp.prior import BetaBinomialInterpolator
-from everyvoice_tpu_torch.dsp.resample import resample_host
+from everyvoice_tpu_torch.dsp.resample import resample, resample_host
 from everyvoice_tpu_torch.dsp.sox import apply_sox_effects
 from everyvoice_tpu_torch.dsp.spectral import (
     compute_energy,
@@ -83,7 +85,6 @@ FILENAME_SEP = "--"
 # the F0 voicing gate compares each frame with its row's peak energy.
 BUCKET_FRAMES = 128
 BATCH_SIZE = 16
-LATER_SLICE = "is not ported yet; it comes with a later slice of the port"
 # Columns of a source filelist that survive the audio step.
 KEEP_COLUMNS = (
     "basename", "language", "speaker", "characters",
@@ -154,9 +155,12 @@ class Preprocessor:
         wav_path: Path,
         sox_effects: Optional[list] = None,
         update_counters: bool = True,
+        skip_loudness: bool = False,
     ):
         """Decode, validate and apply the effects once, at the native rate.
-        Returns ((C, T) audio, sr), or None for a rejected file."""
+        Returns ((C, T) audio, sr), or None for a rejected file. With
+        ``skip_loudness`` the caller gates the loudness, and counts the
+        duration of the files that pass."""
         try:
             audio, sr = read_wav(wav_path)
         except FileNotFoundError:
@@ -181,12 +185,13 @@ class Preprocessor:
             if update_counters:
                 self.counters.increment("audio_too_short")
             return None
-        lufs = integrated_loudness_host(audio, sr)
-        if np.isnan(lufs) or lufs < -36.0:
-            logger.warning(f"Audio empty (loudness {lufs:.1f}): {wav_path} — skipping")
-            if update_counters:
-                self.counters.increment("audio_empty")
-            return None
+        if not skip_loudness:
+            lufs = integrated_loudness_host(audio, sr)
+            if np.isnan(lufs) or lufs < -36.0:
+                logger.warning(f"Audio empty (loudness {lufs:.1f}): {wav_path} — skipping")
+                if update_counters:
+                    self.counters.increment("audio_empty")
+                return None
         x = np.asarray(audio)
         if sox_effects:
             try:
@@ -196,7 +201,7 @@ class Preprocessor:
                 if update_counters:
                     self.counters.increment("sox_error")
                 return None
-        if update_counters:
+        if update_counters and not skip_loudness:
             self.counters.increment("duration", seconds)
         return x, sr
 
@@ -277,9 +282,10 @@ class Preprocessor:
     def process_all_audio(self, cpus: int = 1, device_audio: Optional[bool] = None) -> list:
         """Validate and condition every audio file, on a thread pool of
         ``cpus`` workers (decoding, filtering and writing release the GIL in
-        part). Returns the processed filelist's rows."""
-        if device_audio:
-            raise NotImplementedError(f"device_audio=True (the batched audio pass) {LATER_SLICE}")
+        part); with ``device_audio``, the gate, resampling and peak
+        normalization as batches on ``self.device``
+        (``_process_all_audio_device``). Returns the processed filelist's
+        rows."""
         (self.save_dir / "audio").mkdir(parents=True, exist_ok=True)
         jobs = []
         for dataset in self.datasets:
@@ -290,7 +296,9 @@ class Preprocessor:
         def one(job):
             return self.process_one_audio(*job)
 
-        if cpus > 1:
+        if device_audio:
+            results = self._process_all_audio_device(jobs, cpus)
+        elif cpus > 1:
             with ThreadPoolExecutor(max_workers=cpus) as pool:
                 results = list(pool.map(one, jobs))
         else:
@@ -300,6 +308,209 @@ class Preprocessor:
             for result in results
             if result is not None
         ]
+
+    # ------------------------------------------------------------------
+    # audio (the device)
+
+    def _decode_for_device(self, item: dict, data_dir, sox_effects, dataset_label):
+        """The host half of the device audio pass, one file: decode,
+        validate, apply the effects and mix down. A file that still has two
+        channels after its effects is gated here, before its mixdown, so its
+        gate sees both channels' energy; a mono file is gated on the device.
+        Returns None (rejected), ("done", item) (artifacts exist) or ("todo",
+        item, (T,) float32 audio, native rate, gated already, {"input" |
+        "output": (needed, path)}, the source's path)."""
+        extension = "" if item["basename"].endswith(".wav") else ".wav"
+        audio_path = Path(data_dir) / (item["basename"] + extension)
+        if not audio_path.exists():
+            logger.warning(f"File '{audio_path}' is missing; not processed.")
+            self.counters.increment("missing_files")
+            self.missing_files_list.append(str(audio_path))
+            return None
+        item = self.get_speaker_and_language(item)
+        item["label"] = dataset_label
+        input_path = self.create_path(item, "audio", f"audio-{self.input_sampling_rate}.wav")
+        output_path = self.create_path(item, "audio", f"audio-{self.output_sampling_rate}.wav")
+        if input_path.exists() and output_path.exists() and not self.overwrite:
+            self.counters.increment("previously_processed_files")
+            return ("done", item)
+        cond = self._load_conditioned_audio(audio_path, sox_effects=sox_effects,
+                                            skip_loudness=True)
+        if cond is None:
+            return None
+        x, native_sr = cond
+        x = np.asarray(x, dtype=np.float32)
+        pre_gated = False
+        if x.shape[0] > 1:
+            lufs = integrated_loudness_host(x, native_sr)
+            if np.isnan(lufs) or lufs < -36.0:
+                logger.warning(f"Audio empty (loudness {lufs:.1f}): {audio_path} — skipping")
+                self.counters.increment("audio_empty")
+                return None
+            pre_gated = True
+            x = np.mean(x, axis=0, keepdims=True)
+        need_input = not input_path.exists() or self.overwrite
+        need_output = self.input_sampling_rate != self.output_sampling_rate and (
+            not output_path.exists() or self.overwrite
+        )
+        return ("todo", item, x[0], int(native_sr), pre_gated,
+                {"input": (need_input, input_path), "output": (need_output, output_path)},
+                str(audio_path))
+
+    def _audio_program(self, native_sr: int, targets: tuple, pcm16: bool = False):
+        """A function of a (B, T) batch tensor of one native rate: the
+        BS.1770 loudness of each row (float32, the whole padded row), then
+        each row resampled to each target rate and peak-normalized to 0.95.
+        With ``pcm16`` the batch is int16 PCM and each output is rounded to
+        int16, the artifact's own grid. Returns (loudness (B,), *outputs)."""
+
+        @torch.no_grad()
+        def program(batch: torch.Tensor) -> tuple:
+            if pcm16:
+                batch = batch.to(torch.float32) / 32768.0
+            lufs = batched_loudness(batch[:, None, :], native_sr)
+            outs = []
+            for target in targets:
+                y = resample(batch, native_sr, target)
+                peak = torch.amax(torch.abs(y), dim=-1, keepdim=True)
+                y = y / torch.clamp(peak, min=1e-9) * 0.95
+                if pcm16:
+                    y = torch.clamp(torch.round(y * 32768.0), -32768, 32767).to(torch.int16)
+                outs.append(y)
+            return (lufs, *outs)
+
+        return program
+
+    def _process_all_audio_device(self, jobs: list, cpus: int) -> list:
+        """The device audio pass: decode on a pool of ``cpus`` threads, group
+        the files by native rate, sort each group by length, pad batches of
+        ``BATCH_SIZE`` to a power-of-two multiple of ``BUCKET_FRAMES`` hops
+        and run ``_audio_program`` on each, batch i+1 dispatched before batch
+        i's outputs are written (pinned copies and an event, as the feature
+        step). A batch travels as int16 PCM where that is exact (16-bit
+        artifacts, effects that keep the grid, every clip of the batch on
+        it), else as float32: the JAX path quantizes a stereo source's mixdown to int16
+        before the peak normalization, which takes it up to 2 LSB from the
+        host path's artifact. The wavs are written on a pool of ``cpus``
+        threads. The batches' shapes, the bytes each way and the device's
+        peak memory are logged as one ``device audio:`` JSON line. Returns
+        the rows in the jobs' order, None for a rejected file."""
+        from math import gcd
+
+        workers = max(cpus, 1)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            decoded = list(pool.map(lambda job: self._decode_for_device(*job), jobs))
+        results: list = [None] * len(decoded)
+        todo = []
+        for i, entry in enumerate(decoded):
+            if entry is None:
+                continue
+            if entry[0] == "done":
+                results[i] = entry[1]
+                continue
+            todo.append((i,) + entry[1:])
+        self.last_audio_transfer_bytes = {"up": 0, "down": 0}
+        self.last_audio_batch_shapes: list = []
+        if not todo:
+            return results
+
+        targets = (self.input_sampling_rate,)
+        if self.output_sampling_rate != self.input_sampling_rate:
+            targets = (self.input_sampling_rate, self.output_sampling_rate)
+        hops = {self.input_sampling_rate: self.audio_config["fft_hop_size"],
+                self.output_sampling_rate: self.output_hop_size}
+        bit_depth = self.audio_config["target_bit_depth"]
+        bucket_samples = BUCKET_FRAMES * self.audio_config["fft_hop_size"]
+
+        def _grid_safe(effects) -> bool:
+            """Effects that keep 16-bit sources on the 16-bit grid: none, or
+            the mono mixdown alone."""
+            if not effects:
+                return True
+            return [[str(part) for part in effect] for effect in effects] == [["channels", "1"]]
+
+        def on_grid(x: np.ndarray) -> bool:
+            """Whether a decoded clip is exactly on the 16-bit grid: a
+            stereo source's mixdown falls between its steps."""
+            scaled = x * 32768.0
+            return bool(np.array_equal(scaled, np.round(scaled)))
+
+        effects_keep_grid = bit_depth == 16 and all(_grid_safe(job[2]) for job in jobs)
+        by_rate: dict = {}
+        for entry in todo:
+            by_rate.setdefault(entry[3], []).append(entry)
+
+        write_pool = ThreadPoolExecutor(max_workers=workers)
+        write_futures = []
+
+        def finish_chunk(chunk, host, event, native_sr) -> None:
+            if event is not None:
+                event.synchronize()
+            lufs, *outs = (h.numpy() for h in host)
+            for row, (idx, item, x, _, pre_gated, needs, path_str) in enumerate(chunk):
+                if not pre_gated and (np.isnan(lufs[row]) or lufs[row] < -36.0):
+                    logger.warning(f"Audio empty (loudness {float(lufs[row]):.1f}): "
+                                   f"{path_str} — skipping")
+                    self.counters.increment("audio_empty")
+                    continue
+                self.counters.increment("duration", len(x) / native_sr)
+                for t_i, target in enumerate(targets):
+                    need, path = needs["input" if target == self.input_sampling_rate
+                                       else "output"]
+                    if not need:
+                        continue
+                    g = gcd(native_sr, target)
+                    out_len = -(-len(x) * (target // g) // (native_sr // g))
+                    y = outs[t_i][row][:out_len]
+                    if y.dtype == np.int16:  # write_wav's rounding gives it back
+                        y = y.astype(np.float32) / 32768.0
+                    hop = hops[target]
+                    write_futures.append(write_pool.submit(
+                        write_wav, path, y[: (len(y) // hop) * hop], target, bit_depth))
+                self.counters.increment("processed_files")
+                results[idx] = item
+
+        try:
+            for native_sr, group in by_rate.items():
+                programs = {pcm16: self._audio_program(native_sr, targets, pcm16=pcm16)
+                            for pcm16 in (False, True)}
+                group.sort(key=lambda e: len(e[2]))
+                pending = None
+                for i in range(0, len(group), BATCH_SIZE):
+                    chunk = group[i : i + BATCH_SIZE]
+                    # int16 both ways only where that is exact: the effects
+                    # keep the grid and every clip of the batch is on it.
+                    pcm16 = effects_keep_grid and all(on_grid(e[2]) for e in chunk)
+                    n_buckets = max(-(-max(len(e[2]) for e in chunk) // bucket_samples), 1)
+                    n_buckets = 1 << (n_buckets - 1).bit_length()  # next power of 2
+                    batch = np.zeros((BATCH_SIZE, n_buckets * bucket_samples),
+                                     np.int16 if pcm16 else np.float32)
+                    for j, e in enumerate(chunk):
+                        if pcm16:
+                            batch[j, : len(e[2])] = np.clip(np.round(e[2] * 32768.0),
+                                                            -32768, 32767)
+                        else:
+                            batch[j, : len(e[2])] = e[2]
+                    host, event = self._dispatch(programs[pcm16], batch)
+                    self.last_audio_batch_shapes.append((native_sr, tuple(batch.shape),
+                                                        str(batch.dtype)))
+                    self.last_audio_transfer_bytes["up"] += batch.nbytes
+                    self.last_audio_transfer_bytes["down"] += sum(
+                        h.numel() * h.element_size() for h in host)
+                    if pending is not None:
+                        finish_chunk(*pending)
+                    pending = (chunk, host, event, native_sr)
+                if pending is not None:
+                    finish_chunk(*pending)
+            for future in write_futures:
+                future.result()
+        finally:
+            write_pool.shutdown()
+        report = {"batches": self.last_audio_batch_shapes, **self.last_audio_transfer_bytes}
+        if self.device.type == "cuda":
+            report["peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
+        logger.info(f"device audio: {json.dumps(report)}")
+        return results
 
     # ------------------------------------------------------------------
     # text
@@ -604,9 +815,8 @@ class Preprocessor:
         device_audio: bool = False,
     ) -> None:
         """Run the steps named in ``to_process``, then stats, split and
-        lock. ``last_step_seconds`` holds each step's wall seconds."""
-        if device_audio:
-            raise NotImplementedError(f"device_audio=True (the batched audio pass) {LATER_SLICE}")
+        lock; the audio step on the device with ``device_audio``.
+        ``last_step_seconds`` holds each step's wall seconds."""
         self.overwrite = overwrite
         self._features_written = {"energy": [], "pitch": []}
         if not overwrite and self.config_lock_has_conflicts():
@@ -629,7 +839,7 @@ class Preprocessor:
             if process != "text":
                 (self.save_dir / process).mkdir(parents=True, exist_ok=True)
             if process == "audio":
-                filelist = self.process_all_audio(cpus=max(cpus, 1))
+                filelist = self.process_all_audio(cpus=max(cpus, 1), device_audio=device_audio)
                 self._write_audio_reports()
                 if not filelist:
                     raise RuntimeError("Your filtered audio filelist is empty; nothing to process.")

@@ -18,6 +18,8 @@ import logging
 import typing
 from typing import Callable, Dict, List, Union
 
+from everyvoice_tpu_torch.text.rule_g2p_tables import EXTRA_LANGUAGE_NAMES
+
 logger = logging.getLogger(__name__)
 
 G2PCallable = Callable[[str], List[str]]
@@ -91,6 +93,13 @@ BUILTIN_G2P_LANGUAGES = frozenset(_BUILTIN_FACTORIES)
 # lang id -> engine instance, DEFERRED marker, or user plugin callable.
 AVAILABLE_G2P_ENGINES: Dict[str, Union[G2PCallable, str]] = {
     lang: DEFERRED_ENGINE for lang in _BUILTIN_FACTORIES
+}
+
+
+# Display names for the wizard's language picker.
+G2P_LANGUAGE_NAMES: Dict[str, str] = {
+    "eng": "English", "und": "Undetermined", "spa": "Spanish", "ita": "Italian",
+    "fin": "Finnish", "deu": "German", "fra": "French", **EXTRA_LANGUAGE_NAMES,
 }
 
 

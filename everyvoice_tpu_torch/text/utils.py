@@ -9,6 +9,11 @@ Hangul syllable sequences, a base followed by its marks (``Mn``, ``Mc``,
 conjuncts (consonant, virama, consonant), emoji ZWJ sequences and flag
 pairs. The grapheme properties that ``unicodedata`` lacks are tabled below
 as code-point ranges; they are the values ``regex`` uses.
+
+The wizard's helpers are here too: ``guess_ipa_phones_in_text(_lines)``, and
+``is_sentence_final``, whose ``\\p{Sentence_Break=ST}|\\p{Sentence_Break=AT}``
+(UAX #29's STerm and ATerm) is a table of code-point ranges generated once
+from ``regex``, as the grapheme tables were.
 """
 
 from __future__ import annotations
@@ -208,3 +213,59 @@ def guess_graphemes_in_text_lines(text_lines: list) -> set:
     for line in text_lines:
         found.update(graphemes(line))
     return found
+
+
+def guess_ipa_phones_in_text(text: str) -> set:
+    """The IPA phones in ``text``, anything that is not IPA dropped.
+
+    >>> sorted(guess_ipa_phones_in_text('ʃin1[}!]'))
+    ['i', 'n', 'ʃ']
+    """
+    from everyvoice_tpu_torch.text.ipa import tokenize_ipa
+
+    return set(tokenize_ipa(text, unknown=False))
+
+
+def guess_ipa_phones_in_text_lines(text_lines: list) -> set:
+    phones: set = set()
+    for line in text_lines:
+        phones.update(guess_ipa_phones_in_text(line))
+    return phones
+
+
+# Code points whose Sentence_Break is STerm or ATerm.
+_SENTENCE_TERMINAL = _table(
+    (0x0021, 0x0021), (0x002E, 0x002E), (0x003F, 0x003F), (0x0589, 0x0589), (0x061D, 0x061F),
+    (0x06D4, 0x06D4), (0x0700, 0x0702), (0x07F9, 0x07F9), (0x0837, 0x0837), (0x0839, 0x0839),
+    (0x083D, 0x083E), (0x0964, 0x0965), (0x104A, 0x104B), (0x1362, 0x1362), (0x1367, 0x1368),
+    (0x166E, 0x166E), (0x1735, 0x1736), (0x17D4, 0x17D5), (0x1803, 0x1803), (0x1809, 0x1809),
+    (0x1944, 0x1945), (0x1AA8, 0x1AAB), (0x1B4E, 0x1B4F), (0x1B5A, 0x1B5B), (0x1B5E, 0x1B5F),
+    (0x1B7D, 0x1B7F), (0x1C3B, 0x1C3C), (0x1C7E, 0x1C7F), (0x2024, 0x2024), (0x203C, 0x203D),
+    (0x2047, 0x2049), (0x2CF9, 0x2CFB), (0x2E2E, 0x2E2E), (0x2E3C, 0x2E3C), (0x2E53, 0x2E54),
+    (0x3002, 0x3002), (0xA4FF, 0xA4FF), (0xA60E, 0xA60F), (0xA6F3, 0xA6F3), (0xA6F7, 0xA6F7),
+    (0xA876, 0xA877), (0xA8CE, 0xA8CF), (0xA92F, 0xA92F), (0xA9C8, 0xA9C9), (0xAA5D, 0xAA5F),
+    (0xAAF0, 0xAAF1), (0xABEB, 0xABEB), (0xFE12, 0xFE12), (0xFE15, 0xFE16), (0xFE52, 0xFE52),
+    (0xFE56, 0xFE57), (0xFF01, 0xFF01), (0xFF0E, 0xFF0E), (0xFF1F, 0xFF1F), (0xFF61, 0xFF61),
+    (0x10A56, 0x10A57), (0x10F55, 0x10F59), (0x10F86, 0x10F89), (0x11047, 0x11048),
+    (0x110BE, 0x110C1), (0x11141, 0x11143), (0x111C5, 0x111C6), (0x111CD, 0x111CD),
+    (0x111DE, 0x111DF), (0x11238, 0x11239), (0x1123B, 0x1123C), (0x112A9, 0x112A9),
+    (0x113D4, 0x113D5), (0x1144B, 0x1144C), (0x115C2, 0x115C3), (0x115C9, 0x115D7),
+    (0x11641, 0x11642), (0x1173C, 0x1173E), (0x11944, 0x11944), (0x11946, 0x11946),
+    (0x11A42, 0x11A43), (0x11A9B, 0x11A9C), (0x11C41, 0x11C42), (0x11EF7, 0x11EF8),
+    (0x11F43, 0x11F44), (0x16A6E, 0x16A6F), (0x16AF5, 0x16AF5), (0x16B37, 0x16B38),
+    (0x16B44, 0x16B44), (0x16D6E, 0x16D6F), (0x16E98, 0x16E98), (0x1BC9F, 0x1BC9F),
+    (0x1DA88, 0x1DA88),
+)
+
+
+def is_sentence_final(char: str) -> bool:
+    """True if Unicode classifies the character as sentence-terminal.
+
+    >>> is_sentence_final('!')
+    True
+    >>> is_sentence_final('¡')
+    False
+    """
+    if len(char) != 1:
+        raise ValueError("Input must be a character (string of length one).")
+    return _in(_SENTENCE_TERMINAL, ord(char))

@@ -1,7 +1,8 @@
 """Host-side helpers copied from everyvoice_tpu/utils/__init__.py: the text
 cleaners a checkpoint's text config names, output-file naming, the
-filelist readers and writer of preprocessing, the logger's run
-sub-directory name, and the YAML/JSON config file reader and writer."""
+filelist readers and writer of preprocessing (with the wizard's festival
+reader and format sniffer), the logger's run sub-directory name, and the
+YAML/JSON config file reader and writer."""
 
 from __future__ import annotations
 
@@ -218,6 +219,44 @@ def generic_psv_filelist_reader(path, **kwargs) -> list:
 
 def generic_csv_filelist_reader(path, **kwargs) -> list:
     return generic_xsv_filelist_reader(path, delimiter=",", **kwargs)
+
+
+def read_festival(
+    path: Path | str, record_limit: int = 0, text_field_name: str = "text"
+) -> list:
+    """A festival-format filelist, ``( basename "text" )`` a line, as row
+    dicts; a line in another format raises ``ValueError``."""
+    pattern = re.compile(r"\(\s*(?P<basename>[\w\d\-_.]*)\s*\"(?P<text>[^\"]*)\"\s*\)")
+    rows = []
+    with open(path, encoding="utf-8") as f:
+        lines: Iterable[str] = islice(f, record_limit) if record_limit else f
+        for line in lines:
+            m = pattern.search(line.strip())
+            if m is None:
+                raise ValueError(f'File {path} is not in the "festival" format.')
+            rows.append({"basename": m["basename"].strip(), text_field_name: m["text"].strip()})
+    return rows
+
+
+def sniff_and_return_filelist_data(path: Path | str):
+    """The rows of a festival or a delimited filelist, its format guessed
+    from its first kilobyte (``csv.Sniffer``, else the first of ``|``, tab,
+    ``,`` and ``;`` found on its header line)."""
+    festival_pattern = re.compile(r'\( [\w\d_]* "[^"]*" \)')
+    with open(path, newline="", encoding="utf8") as f:
+        head = f.read(1024)
+        f.seek(0)
+        if festival_pattern.search(head):
+            return read_festival(path)
+        try:
+            dialect = csv.Sniffer().sniff(head, delimiters="|,\t;")
+            return list(csv.DictReader(f, dialect=dialect))
+        except csv.Error:
+            first_line = head.splitlines()[0] if head else ""
+            for delim in ("|", "\t", ",", ";"):
+                if delim in first_line:
+                    return list(csv.DictReader(f, delimiter=delim))
+            raise
 
 
 FILELIST_LOADERS = {

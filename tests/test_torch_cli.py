@@ -705,8 +705,8 @@ def test_help_loads_no_torch_and_lists_the_pipeline_first(tmp_path):
     listing = proc.stdout.split("COMMAND\n", 1)[1].split("\n\n", 1)[0]
     verbs = [line.split()[0] for line in listing.splitlines()
              if line.startswith("    ") and not line.startswith("     ")]
-    assert verbs == ["preprocess", "train", "synthesize", "check", "checkpoint", "demo",
-                     "evaluate", "export", "fetch-pretrained", "g2p", "segment"]
+    assert verbs == ["new-project", "preprocess", "train", "synthesize", "check", "checkpoint",
+                     "demo", "evaluate", "export", "fetch-pretrained", "g2p", "segment"]
 
 
 @pytest.mark.parametrize("verb", ["preprocess", "train", "train text-to-wav", "synthesize from-text",
@@ -741,7 +741,6 @@ def test_unported_flags_name_their_roadmap_item(world, port_cli, tmp_path):
     fs2 = config_path(world, "json", "text-to-spec")
     st2 = config_path(world, "json", "text-to-wav")
     cases = [
-        (["preprocess", "text-to-spec", fs2, "--device-audio"], "The rest"),
         (["fetch-pretrained", "text-to-wav", "--config-path", st2], "fetch-pretrained"),
     ]
     for args, item in cases:
@@ -758,3 +757,52 @@ def test_unported_flags_name_their_roadmap_item(world, port_cli, tmp_path):
     with pytest.raises(SystemExit) as usage:
         cli.main(["train", "text-to-wav", str(st2), "--mode", "third"])
     assert usage.value.code == 2
+
+
+def test_preprocess_device_audio_matches_the_jax_cli(world, port_cli, tmp_path, monkeypatch):
+    """``preprocess --device-audio`` (the audio step on the device, here the
+    CPU) writes the JAX CLI's ``--device-audio`` artifacts within 1 LSB and
+    its filelist byte for byte; without the CPU switch it needs the card."""
+    from everyvoice_tpu.dsp import read_wav
+
+    fs2 = config_path(world, "json", "text-to-spec")
+    saves = {name: tmp_path / name for name in ("jax", "port")}
+    args = ["preprocess", "text-to-spec", fs2, "-s", "audio", "--device-audio",
+            "-c", "preprocessing.audio.output_sampling_rate=44100"]
+    result = jax_cli(*args, "-c", f"preprocessing.save_dir={saves['jax']}")
+    assert result.exit_code == 0, result.output
+    rc, _, err = port_cli(*args, "-c", f"preprocessing.save_dir={saves['port']}")
+    assert rc == 0, err
+    assert (saves["port"] / "filelist.psv").read_bytes() == (
+        saves["jax"] / "filelist.psv").read_bytes()
+    names = sorted(p.name for p in (saves["jax"] / "audio").glob("*.wav"))
+    assert len(names) == 2 * UTTERANCES
+    assert names == sorted(p.name for p in (saves["port"] / "audio").glob("*.wav"))
+    for name in names:
+        want, sr_want = read_wav(saves["jax"] / "audio" / name)
+        got, sr_got = read_wav(saves["port"] / "audio" / name)
+        assert sr_got == sr_want and got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=0, atol=1.01 / 32768, err_msg=name)
+    if not torch.cuda.is_available():
+        monkeypatch.delenv("EVERYVOICE_DEVICE")
+        rc, _, err = port_cli(*args, "-c", f"preprocessing.save_dir={tmp_path / 'none'}")
+        assert rc == 1 and "runs on a CUDA card by default" in err
+
+
+def test_new_project_reports_a_short_input_and_a_missing_session(world, tmp_path):
+    """``new-project`` reads its answers from standard input: one that ends
+    before the wizard's last question exits 1 with a message, and
+    ``--resume-from`` needs an existing file (a usage error). The whole
+    journey on stdin is in tests/test_torch_wizard.py."""
+    answers = ["Piped", "Test Runner", "info@everyvoice.ca", str(tmp_path),
+               str(world["filelist"]), "yes"]
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    cut = subprocess.run([sys.executable, "-m", "everyvoice_tpu_torch", "new-project"],
+                         input="\n".join(answers) + "\n", cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert cut.returncode == 1 and "input ended" in cut.stderr
+    assert not (tmp_path / "Piped").exists()
+    missing = subprocess.run([sys.executable, "-m", "everyvoice_tpu_torch", "new-project", "-r",
+                              str(tmp_path / "nope.yaml")], capture_output=True, text=True,
+                             timeout=120, env=env)
+    assert missing.returncode == 2 and "does not exist" in missing.stderr

@@ -250,3 +250,132 @@ def test_read_wav(tmp_path, kind, channels):
     want, want_sr = jax_audio_io.read_wav(path)
     assert sr == want_sr == SR and got.dtype == np.float32 and got.shape == (channels, n)
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# DIO and the segment samplers (dsp/dio.py, dsp/segments.py). Tolerances:
+# voicing equal exactly on the vibrato tone and on silence, on at least 99%
+# of frames on the glide and noise (a dispersion near the threshold can flip
+# under float32 sums in another order); F0 within 1e-3 relative where both
+# are voiced; the segments bit for bit.
+
+def _dio_signals() -> dict:
+    rng = np.random.default_rng(11)
+    t = np.arange(int(2.0 * SR)) / SR
+    f_true = 180 + 10 * np.sin(2 * np.pi * 3 * t)
+    phase = 2 * np.pi * np.cumsum(f_true) / SR
+    glide = 2 * np.pi * np.cumsum(np.linspace(90.0, 420.0, t.size)) / SR
+    return {
+        "vibrato": (np.sin(phase) + 0.5 * np.sin(2 * phase) + 0.3 * np.sin(3 * phase)),
+        "glide": 0.6 * np.sin(glide) + 0.2 * np.sin(2 * glide) + 0.01 * rng.standard_normal(t.size),
+        "noise": 0.3 * rng.standard_normal(t.size),
+        "silence": np.zeros(t.size),
+    }
+
+
+@pytest.fixture(scope="module")
+def dio_runs():
+    from everyvoice_tpu.dsp.dio import estimate_f0_dio as jax_dio
+    from everyvoice_tpu_torch.dsp.dio import estimate_f0_dio
+
+    signals = {k: v.astype(np.float32) for k, v in _dio_signals().items()}
+    batch = np.stack(list(signals.values()))
+    want = np.asarray(jax_dio(jnp.asarray(batch), SR, 256, interpolate=False))
+    got = estimate_f0_dio(_t(batch), SR, 256, interpolate=False).numpy()
+    return {name: (got[i], want[i], signals[name]) for i, name in enumerate(signals)}
+
+
+@pytest.mark.parametrize("name", ["vibrato", "glide", "noise", "silence"])
+def test_dio_matches_jax(dio_runs, name):
+    got, want, _ = dio_runs[name]
+    assert got.shape == want.shape == (int(2.0 * SR) // 256 + 1,)
+    same = (got > 0) == (want > 0)
+    if name in ("vibrato", "silence"):
+        assert same.all()
+    else:
+        assert same.mean() >= 0.99
+    both = (got > 0) & (want > 0)
+    assert np.all(np.abs(got[both] - want[both]) <= 1e-3 * want[both])
+    if name == "silence":
+        assert not got.any()
+
+
+def test_dio_tracks_the_vibrato_contour(dio_runs):
+    """The JAX test's bound (tests/test_dsp.py::TestDioCrossValidation):
+    voiced on 95% of the core frames, median error under 0.5 Hz."""
+    got, _, x = dio_runs["vibrato"]
+    t = np.arange(x.size) / SR
+    f_true = 180 + 10 * np.sin(2 * np.pi * 3 * t)
+    centers = np.minimum(np.arange(got.size) * 256, x.size - 1)
+    core = slice(10, -10)
+    voiced = got[core] > 0
+    assert voiced.mean() > 0.95
+    assert np.median(np.abs(got[core][voiced] - f_true[centers][core][voiced])) < 0.5
+
+
+def test_dio_interpolates_as_jax_and_keeps_batch_shape():
+    from everyvoice_tpu.dsp.dio import estimate_f0_dio as jax_dio
+    from everyvoice_tpu_torch.dsp.dio import estimate_f0_dio
+
+    x = _dio_signals()["glide"][: 256 * 60].astype(np.float32).reshape(2, 1, -1)
+    want = np.asarray(jax_dio(jnp.asarray(x), SR, 256))
+    got = estimate_f0_dio(_t(x), SR, 256).numpy()
+    assert got.shape == want.shape == (2, 1, x.shape[-1] // 256 + 1)
+    _close(got, want, rel=1e-3)
+
+
+def test_get_segment_matches_jax():
+    import jax
+
+    from everyvoice_tpu.dsp.segments import get_segment as jax_get_segment
+    from everyvoice_tpu_torch.dsp.segments import get_segment
+
+    x = np.random.default_rng(5).standard_normal((2, 100)).astype(np.float32)
+    for start in (0, 17, 90, 95):  # 95 is past the last start: both clamp to 90
+        want, want_start = jax_get_segment(jnp.asarray(x), 10, start=start)
+        got, got_start = get_segment(_t(x), 10, start=start)
+        assert np.array_equal(got.numpy(), np.asarray(want)) and got_start == int(want_start)
+    want, _ = jax_get_segment(jnp.asarray(x[:, :5]), 10, key=jax.random.PRNGKey(0))
+    got, start = get_segment(_t(x[:, :5]), 10, torch.Generator().manual_seed(0))
+    assert start == 0 and np.array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError):
+        get_segment(_t(x), 10)
+
+
+def test_get_segments_batched_matches_jax():
+    import jax
+
+    from everyvoice_tpu.dsp.segments import get_segments_batched as jax_batched
+    from everyvoice_tpu_torch.dsp.segments import get_segments_batched
+
+    rng = np.random.default_rng(6)
+    for shape, axis in (((4, 120), 1), ((4, 120, 3), 1), ((4, 3, 120), 2)):
+        batch = rng.standard_normal(shape).astype(np.float32)
+        lengths = np.array([120, 70, 30, 55])
+        starts = np.array([60, 15, 0, 50])  # row 3 runs past its length: masked
+        want, want_starts = jax_batched(jnp.asarray(batch), jnp.asarray(lengths), 50,
+                                        jax.random.PRNGKey(0), axis=axis,
+                                        starts=jnp.asarray(starts))
+        got, got_starts = get_segments_batched(_t(batch), _t(lengths), 50, axis=axis,
+                                               starts=_t(starts))
+        assert np.array_equal(got.numpy(), np.asarray(want)), shape
+        assert np.array_equal(got_starts.numpy(), np.asarray(want_starts))
+
+
+def test_random_segments_are_in_range_and_reproducible():
+    from everyvoice_tpu_torch.dsp.segments import get_segment, get_segments_batched
+
+    batch = torch.arange(4 * 200, dtype=torch.float32).reshape(4, 200)
+    lengths = torch.tensor([200, 120, 50, 10])
+    segs, starts = get_segments_batched(batch, lengths, 50, torch.Generator().manual_seed(3))
+    again, starts2 = get_segments_batched(batch, lengths, 50, torch.Generator().manual_seed(3))
+    assert torch.equal(segs, again) and torch.equal(starts, starts2)
+    assert all(0 <= int(s) <= max(int(n) - 50, 0) for s, n in zip(starts, lengths))
+    for row, (s, n) in enumerate(zip(starts.tolist(), lengths.tolist())):
+        valid = min(50, n - s)
+        assert torch.equal(segs[row, :valid], batch[row, s : s + valid])
+        assert not segs[row, valid:].any()
+    draws = {get_segment(batch[:1], 50, torch.Generator().manual_seed(k))[1] for k in range(20)}
+    assert len(draws) > 1 and all(0 <= d <= 150 for d in draws)
+    assert get_segment(batch[:1], 50, torch.Generator().manual_seed(4))[1] == get_segment(
+        batch[:1], 50, torch.Generator().manual_seed(4))[1]

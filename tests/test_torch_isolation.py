@@ -4,9 +4,11 @@ preprocess of an English corpus through G2P and phonological features, two
 CPU training steps on its artifacts (and one more as a rank of a one-rank
 gloo mesh under FSDP), a small CPU StyleTTS2 synthesis and a
 StyleTTS2 training step on the same artifacts, a CTC alignment of a short
-recording with a seeded wav2vec2 directory and one demo request over HTTP
-loads nothing of JAX, flax, pydantic, regex, msgpack, PyYAML, PIL,
-``transformers``, ``safetensors`` or ``everyvoice_tpu``. This file's
+recording with a seeded wav2vec2 directory, one demo request over HTTP, a
+scripted new-project wizard whose project is then preprocessed on the
+device audio path, and DIO and the segment samplers loads nothing of JAX,
+flax, pydantic, regex, msgpack, PyYAML, click, PIL, ``transformers``,
+``safetensors`` or ``everyvoice_tpu``. This file's
 process has imported JAX already (tests/conftest.py), so the check runs in
 a fresh interpreter."""
 
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "pydantic", "regex", "msgpack", "yaml", "PIL",
+FORBIDDEN = ("jax", "flax", "optax", "pydantic", "regex", "msgpack", "yaml", "click", "PIL",
              "everyvoice_tpu", "transformers", "safetensors")
 
 CHILD = """
@@ -205,13 +207,36 @@ with tempfile.TemporaryDirectory() as tmp:
         demo_status = resp.status
         demo_wav = len(json.loads(resp.read())["wav_base64"])
     server.shutdown()
+
+    # a project from nothing: the wizard with scripted answers, then its
+    # project preprocessed with the audio step on the device path (the CPU)
+    from everyvoice_tpu_torch.config_files import load_config_from_path
+    from everyvoice_tpu_torch.wizard.main_tour import get_main_wizard_tour
+    answers = iter(["Iso", "Isolation Test", "iso@example.org", str(tmp), str(filelist), "yes",
+                    "psv", "characters", "none", "yes", "yes", "keep", str(wavs), "22050", "none",
+                    "iso", "no", "validation", "yaml"])
+    state = get_main_wizard_tour(ask=lambda *a, **k: next(answers)).run()
+    project = state["project_dir"]
+    wizard_files = len(list(project.rglob("*.yaml")))
+    cfg = load_config_from_path("text-to-spec", project / "config" / "everyvoice-text-to-spec.yaml",
+                                ["preprocessing.audio.output_sampling_rate=44100"])
+    device_pre = Preprocessor(cfg, device="cpu")
+    device_pre.preprocess(to_process=("audio", "text", "spec"), device_audio=True)
+    device_audio_wavs = len(list((project / "preprocessed" / "audio").glob("*.wav")))
+    from everyvoice_tpu_torch.dsp.dio import estimate_f0_dio
+    from everyvoice_tpu_torch.dsp.segments import get_segments_batched
+    dio_frames = estimate_f0_dio(torch.zeros(2, 2560), 22050, 256).shape[-1]
+    segs = get_segments_batched(torch.ones(2, 100), torch.tensor([100, 40]), 50,
+                                torch.Generator().manual_seed(0))[0].shape
 roots = sorted({name.split(".")[0] for name in sys.modules})
 print(json.dumps({"roots": roots, "written": len(written), "specs": specs, "pfs": pfs,
                   "samples": [len(r["wav"]) for r in results], "steps": steps,
                   "ckpts": ckpts, "meshed_steps": meshed_steps, "st2_samples": st2_samples, "st2_ckpts": st2_ckpts,
                   "safetensors_layers": safetensors_layers, "regime2_ckpts": regime2_ckpts,
                   "regime2_slm": regime2_slm, "segments": len(segments),
-                  "extracted": extracted, "demo_status": demo_status, "demo_wav": demo_wav}))
+                  "extracted": extracted, "demo_status": demo_status, "demo_wav": demo_wav,
+                  "wizard_files": wizard_files, "device_audio_wavs": device_audio_wavs,
+                  "dio_frames": dio_frames, "segments_shape": list(segs)}))
 """
 
 
@@ -234,6 +259,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "stage-2-last.ckpt" in report["regime2_ckpts"] and report["regime2_slm"]
     assert report["segments"] == report["extracted"] == 2
     assert report["demo_status"] == 200 and report["demo_wav"] > 100
+    assert report["wizard_files"] == 5 and report["device_audio_wavs"] == 4  # 2 clips, 2 rates
+    assert report["dio_frames"] == 11 and report["segments_shape"] == [2, 50]
     loaded = set(report["roots"])
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
 

@@ -27,6 +27,7 @@ from everyvoice_tpu.models.fs2 import FastSpeech2Config
 from everyvoice_tpu.preprocessor import Preprocessor as JaxPreprocessor
 from everyvoice_tpu.text import TextProcessor as JaxTextProcessor
 from everyvoice_tpu_torch.config import fs2_config, preprocessing_config
+from everyvoice_tpu_torch.dsp import read_wav
 from everyvoice_tpu_torch.preprocessor import Preprocessor
 from everyvoice_tpu_torch.text import TextProcessor
 
@@ -304,16 +305,30 @@ def test_eng_pfs_are_bit_equal(eng_runs):
 
 @pytest.mark.parametrize("call", ["device_audio", "pfs", "ood", "g2p", "arpabet"])
 def test_later_slices_raise(runs, eng_runs, tmp_path, call):
-    """What a later slice brings raises (the device audio path);
-    ``preprocess_ood``, which the StyleTTS2 training slice brought, writes
-    the files the JAX package's writes; the text options this slice ported
+    """The options later slices brought: the device audio path writes the
+    host path's audio artifacts within 1 LSB and the same filelists, counts
+    and reports; ``preprocess_ood``, which the StyleTTS2 training slice
+    brought, writes the files the JAX package's writes; the text options
     give the JAX package's ``process_text`` result: phonological features,
     G2P from characters, and ARPABET converted to IPA phones."""
     if call == "device_audio":
         port = Preprocessor(_raw_config(runs["root"], runs["filelist"], tmp_path / "out"),
                             device="cpu")
-        with pytest.raises(NotImplementedError):
-            port.preprocess(to_process=STEPS, device_audio=True)
+        port.preprocess(to_process=STEPS, device_audio=True)
+        host = tmp_path / "host"  # the module's host run is rerun by other tests
+        Preprocessor(_raw_config(runs["root"], runs["filelist"], host),
+                     device="cpu").preprocess(to_process=STEPS)
+        for name in ("filelist.psv", "training_filelist.psv", "validation_filelist.psv",
+                     "missing_files.txt", "multichannel_files.txt"):
+            assert (tmp_path / "out" / name).read_bytes() == (host / name).read_bytes(), name
+        summary = json.loads((tmp_path / "out" / "summary.txt").read_text())
+        assert summary == pytest.approx(json.loads((host / "summary.txt").read_text()))
+        wavs = sorted(p.name for p in (host / "audio").glob("*.wav"))
+        assert wavs and wavs == sorted(p.name for p in (tmp_path / "out" / "audio").glob("*.wav"))
+        for name in wavs:
+            got, want = read_wav(tmp_path / "out" / "audio" / name), read_wav(host / "audio" / name)
+            assert got[1] == want[1] and got[0].shape == want[0].shape, name
+            np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1.01 / 32768, err_msg=name)
         return
     if call == "ood":
         texts = {"eng": ["Hello there.", "  ", "A pipe | and a back\\slash."], "fra": ["Bonjour."]}
